@@ -1,0 +1,168 @@
+"""Square-error cost, Gauss-Newton step and pose covariance.
+
+Port of ``my_lidar_graph_slam_v2_tpu/ops/gauss_newton.py``
+(``cost_function_square_error.cpp``, ``scan_matcher_linear_solver.cpp``).
+The same deliberate deviation from the reference is kept: fractional
+indices are shifted by -0.5 so the map is interpolated at cell centres
+(see the JAX module's docstring for why).
+
+``gn_refine`` keeps the loop on the device: it always runs
+``max_iterations`` masked steps, and a finished state stays frozen.  The
+iterate sequence equals the JAX ``while_loop``'s, and no iteration needs
+a host sync to test the stop condition.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..utils.transfer import f32
+from .quant import dequant_prob
+
+
+def _bilinear_values(prob, observed, frow, fcol):
+    """Four corner probabilities + fractional offsets for float indices.
+    Unknown or out-of-range corners read 0.5; indices are clamped like
+    the reference (``cost_function_square_error.cpp:326-351``)."""
+    H, W = prob.shape
+    r0 = torch.floor(frow)
+    c0 = torch.floor(fcol)
+    dr = frow - r0
+    dc = fcol - c0
+    rc0 = torch.clamp(r0.to(torch.int32), min=0)
+    cc0 = torch.clamp(c0.to(torch.int32), min=0)
+    rc1 = torch.clamp(rc0 + 1, max=H - 1)
+    cc1 = torch.clamp(cc0 + 1, max=W - 1)
+    prob_flat = prob.reshape(-1)
+    obs_flat = observed.reshape(-1)
+
+    def read(r, c):
+        inside = (r >= 0) & (r < H) & (c >= 0) & (c < W)
+        idx = (torch.clamp(r, 0, H - 1).long() * W
+               + torch.clamp(c, 0, W - 1).long())
+        p = dequant_prob(prob_flat[idx])
+        known = obs_flat[idx] & inside
+        return torch.where(known, p, 0.5)
+
+    m00 = read(rc0, cc0)
+    m01 = read(rc1, cc0)
+    m10 = read(rc0, cc1)
+    m11 = read(rc1, cc1)
+    return m00, m01, m10, m11, dr, dc
+
+
+def _interp_and_grad(prob, observed, frow, fcol):
+    """Smoothed value + scaled gradient (d/d(col), d/d(row))."""
+    m00, m01, m10, m11, dr, dc = _bilinear_values(prob, observed, frow, fcol)
+    value = dr * (dc * m11 + (1.0 - dc) * m01) + (1.0 - dr) * (
+        dc * m10 + (1.0 - dc) * m00
+    )
+    grad_x = dr * (m11 - m01) + (1.0 - dr) * (m10 - m00)
+    grad_y = dc * (m11 - m10) + (1.0 - dc) * (m01 - m00)
+    return value, grad_x, grad_y
+
+
+def _hit_points(sensor_pose, ranges, angles):
+    ang = sensor_pose[2] + angles
+    hx = sensor_pose[0] + ranges * torch.cos(ang)
+    hy = sensor_pose[1] + ranges * torch.sin(ang)
+    return hx, hy
+
+
+def _frac_indices(hx, hy, resolution, offset_xy):
+    res = f32(resolution, hx.device)
+    fcol = torch.div(hx - offset_xy[0], res) - 0.5
+    frow = torch.div(hy - offset_xy[1], res) - 0.5
+    return frow, fcol
+
+
+def cost(prob, observed, ranges, angles, mask, sensor_pose, resolution,
+         offset_xy):
+    """Total squared-error cost over valid beams (0-d f32)."""
+    hx, hy = _hit_points(sensor_pose, ranges, angles)
+    frow, fcol = _frac_indices(hx, hy, resolution, offset_xy)
+    value, _, _ = _interp_and_grad(prob, observed, frow, fcol)
+    err = torch.where(mask, 1.0 - value, 0.0)
+    return torch.sum(err * err)
+
+
+def hessian_and_residual(prob, observed, ranges, angles, mask, sensor_pose,
+                         resolution, offset_xy):
+    """(H [3, 3], b [3], cost) at the given map-local sensor pose."""
+    hx, hy = _hit_points(sensor_pose, ranges, angles)
+    frow, fcol = _frac_indices(hx, hy, resolution, offset_xy)
+    value, gx, gy = _interp_and_grad(prob, observed, frow, fcol)
+    inv_res = 1.0 / resolution
+    gx = gx * inv_res
+    gy = gy * inv_res
+    rx = hx - sensor_pose[0]
+    ry = hy - sensor_pose[1]
+    gt = -ry * gx + rx * gy
+    J = torch.stack([gx, gy, gt], dim=-1)  # [B, 3]
+    r = 1.0 - value
+    w = mask.to(torch.float32)
+    Jw = J * w[:, None]
+    H = Jw.T @ J
+    b = Jw.T @ r
+    c = torch.sum(w * r * r)
+    return H, b, c
+
+
+def covariance(prob, observed, ranges, angles, mask, sensor_pose, resolution,
+               offset_xy, scale=1e4):
+    """Pose covariance = scale * H^{-1} (map-local frame)."""
+    H, _, _ = hessian_and_residual(
+        prob, observed, ranges, angles, mask, sensor_pose, resolution,
+        offset_xy,
+    )
+    return torch.linalg.inv_ex(H).inverse * scale
+
+
+def gn_refine(prob, observed, ranges, angles, mask, sensor_pose0, resolution,
+              offset_xy, max_iterations=10, convergence_threshold=1e-4,
+              initial_lambda=1e-4):
+    """Damped Gauss-Newton (Levenberg-Marquardt) refinement
+    (``ScanMatcherLinearSolver::OptimizePose``), rejecting steps that
+    increase the cost.  Returns (pose, cost, n_iterations) as device
+    tensors.
+
+    Runs ``max_iterations`` masked steps: once the stop test holds, the
+    state stops changing, exactly as the JAX ``while_loop`` exits.  The
+    solves use ``solve_ex`` so a singular system yields non-finite values
+    (rejected like any cost increase) instead of a host-side check."""
+
+    def eval_at(p):
+        return hessian_and_residual(
+            prob, observed, ranges, angles, mask, p, resolution, offset_xy
+        )
+
+    dev = sensor_pose0.device
+    H, b, cur = eval_at(sensor_pose0)
+    p = sensor_pose0
+    lam = f32(initial_lambda, dev)
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    eye = torch.eye(3, dtype=torch.float32, device=dev)
+    for _ in range(max_iterations):
+        step = torch.linalg.solve_ex(H + lam * eye, b).result
+        p_new = p + step
+        H_new, b_new, c_new = eval_at(p_new)
+        accept = c_new < cur
+        it_new = it + 1
+        stop = (it_new >= max_iterations) | (
+            accept & (torch.abs(cur - c_new) < convergence_threshold)
+        )
+        live = ~done
+        take = live & accept
+        p = torch.where(take, p_new, p)
+        cur = torch.where(take, c_new, cur)
+        H = torch.where(take, H_new, H)
+        b = torch.where(take, b_new, b)
+        lam = torch.where(
+            live,
+            torch.where(accept, torch.clamp(lam * 0.5, min=1e-8),
+                        torch.clamp(lam * 4.0, max=1e6)),
+            lam,
+        )
+        it = torch.where(live, it_new, it)
+        done = done | stop
+    return p, cur, it
