@@ -25,7 +25,6 @@ Imports nothing of JAX.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import statistics
 import subprocess
@@ -46,6 +45,9 @@ import torch
 POSE_TOL_XY = 0.05
 POSE_TOL_THETA = 0.0025
 TIMED_RUNS = 20
+# Keyframes of the slice's run: at least 40 so several local maps are
+# finished and compacted.
+KEYFRAMES = 48
 
 
 def _nvidia_smi() -> str:
@@ -196,7 +198,7 @@ def _sync_sites(fn):
     return sites
 
 
-def check_slice(device, keyframes: int):
+def check_slice(device):
     """Phase 4: the factory-default frontend slice on the card vs the CPU.
 
     A short warm-up run on another sequence first pays the one-time costs
@@ -207,7 +209,7 @@ def check_slice(device, keyframes: int):
     from my_lidar_graph_slam_v2_tpu_torch.datasets import synthetic
     from my_lidar_graph_slam_v2_tpu_torch.ops import csm_cuda
 
-    seq = build_sequence(keyframes)
+    seq = build_sequence(KEYFRAMES)
     warm = run_slice(device, build_sequence(4, seed=1))
     torch.cuda.reset_peak_memory_stats(device)
     csm_cuda.LAUNCHES = 0
@@ -263,11 +265,7 @@ def check_slice(device, keyframes: int):
     return stats, launches
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--keyframes", type=int, default=48)
-    args = ap.parse_args(argv)
-
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port has no CPU "
               "fallback on this path", file=sys.stderr)
@@ -287,7 +285,7 @@ def main(argv=None) -> int:
         print(f"  nvcc: {line}")
 
     shapes = check_kernel(device)
-    stats, launches = check_slice(device, args.keyframes)
+    stats, launches = check_slice(device)
 
     main_path = [r for r in shapes if r["shape"] in ("coarse", "fine")]
     print(json.dumps({"kernels": [dict(

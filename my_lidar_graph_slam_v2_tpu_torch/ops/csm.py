@@ -172,40 +172,12 @@ def sweep_plain(win, hr, hc, ok, off, scale=quant.INV255):
     return S.to(torch.float32) * float(scale)
 
 
-def check_sweep_args(win, hr, hc, ok, off):
-    """Raise on any input the sweep (kernel or plain) does not take."""
-    if win.dtype != torch.uint8 or win.ndim != 4 or win.shape[1] != 2:
-        raise ValueError(
-            f"win must be u8 [N, 2, in_r, in_c], got {win.dtype} "
-            f"{tuple(win.shape)}"
-        )
-    N = win.shape[0]
-    for name, a, dt in (("hr", hr, torch.int32), ("hc", hc, torch.int32),
-                        ("ok", ok, torch.bool)):
-        if a.dtype != dt or a.ndim != 3 or a.shape[0] != N:
-            raise ValueError(
-                f"{name} must be {dt} [N={N}, T, B], got {a.dtype} "
-                f"{tuple(a.shape)}"
-            )
-    if not (hr.shape == hc.shape == ok.shape):
-        raise ValueError(
-            f"hr/hc/ok shapes differ: {tuple(hr.shape)} {tuple(hc.shape)} "
-            f"{tuple(ok.shape)}"
-        )
-    if off.dtype != torch.int32 or off.ndim != 2 or off.shape[1] != 2:
-        raise ValueError(
-            f"off must be i32 [n_off, 2], got {off.dtype} {tuple(off.shape)}"
-        )
-    devs = {a.device for a in (win, hr, hc, ok, off)}
-    if len(devs) != 1:
-        raise ValueError(f"sweep inputs on several devices: {devs}")
-
-
 def sweep(win, hr, hc, ok, off):
     """The CSM sweep, f32 ``[N, T, 2, n_off]`` (scores, known).  CPU
-    tensors take :func:`sweep_plain`; CUDA tensors launch the kernel
-    (which raises on anything it does not take)."""
-    check_sweep_args(win, hr, hc, ok, off)
+    tensors take :func:`sweep_plain`; anything else goes to the kernel's
+    wrapper, which launches on CUDA tensors and raises on anything it
+    does not take."""
     if win.device.type == "cpu":
+        csm_cuda.check_sweep_args(win, hr, hc, ok, off)
         return sweep_plain(win, hr, hc, ok, off)
     return csm_cuda.csm_sweep(win, hr, hc, ok, off)

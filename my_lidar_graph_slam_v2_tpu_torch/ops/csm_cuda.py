@@ -89,13 +89,45 @@ def _load():
     return _lib
 
 
+def check_sweep_args(win, hr, hc, ok, off):
+    """Raise on any input the sweep (kernel or plain) does not take:
+    win u8 ``[N, 2, in_r, in_c]``; hr, hc i32 and ok bool ``[N, T, B]``;
+    off i32 ``[n_off, 2]``; all on one device."""
+    if win.dtype != torch.uint8 or win.ndim != 4 or win.shape[1] != 2:
+        raise ValueError(
+            f"win must be u8 [N, 2, in_r, in_c], got {win.dtype} "
+            f"{tuple(win.shape)}"
+        )
+    N = win.shape[0]
+    for name, a, dt in (("hr", hr, torch.int32), ("hc", hc, torch.int32),
+                        ("ok", ok, torch.bool)):
+        if a.dtype != dt or a.ndim != 3 or a.shape[0] != N:
+            raise ValueError(
+                f"{name} must be {dt} [N={N}, T, B], got {a.dtype} "
+                f"{tuple(a.shape)}"
+            )
+    if not (hr.shape == hc.shape == ok.shape):
+        raise ValueError(
+            f"hr/hc/ok shapes differ: {tuple(hr.shape)} {tuple(hc.shape)} "
+            f"{tuple(ok.shape)}"
+        )
+    if off.dtype != torch.int32 or off.ndim != 2 or off.shape[1] != 2:
+        raise ValueError(
+            f"off must be i32 [n_off, 2], got {off.dtype} {tuple(off.shape)}"
+        )
+    devs = {a.device for a in (win, hr, hc, ok, off)}
+    if len(devs) != 1:
+        raise ValueError(f"sweep inputs on several devices: {devs}")
+
+
 def csm_sweep(win, hr, hc, ok, off, scale=quant.INV255):
     """Launch the sweep kernel: f32 ``[N, T, 2, n_off]``.
 
-    Takes the shapes and dtypes of ``ops/csm.py:sweep_plain``, all on one
-    CUDA device and contiguous; raises on anything else.  Launches on the
-    current stream and does not synchronize."""
+    Takes what :func:`check_sweep_args` takes, on a CUDA device and
+    contiguous; raises on anything else.  Launches on the current stream
+    and does not synchronize."""
     global LAUNCHES
+    check_sweep_args(win, hr, hc, ok, off)
     tensors = (win, hr, hc, ok, off)
     if any(a.device.type != "cuda" for a in tensors):
         raise ValueError("csm_sweep launches on CUDA tensors only")

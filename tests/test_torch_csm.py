@@ -236,3 +236,48 @@ def test_wrapper_takes_plain_path_on_cpu():
         csm_cuda.csm_sweep(*args)  # launches on CUDA tensors only
     with pytest.raises(ValueError):
         csm.sweep(win.to(torch.int32), *args[1:])
+
+
+def _bad_args(case):
+    """Sweep arguments broken in one way each; the rest are valid."""
+    rng = np.random.default_rng(81)
+    hr, hc, valid, _ = _cells(rng, 4, 16, 12)
+    args = dict(
+        win=torch.as_tensor(rng.integers(0, 256, (2, 2, 16, 16)).astype(np.uint8)),
+        hr=_t(np.stack([hr, hr])), hc=_t(np.stack([hc, hc])),
+        ok=_t(np.stack([valid, valid])), off=csm.grid_offsets(3, 3, 1, "cpu"),
+    )
+    if case == "win one channel":
+        args["win"] = args["win"][:, :1].contiguous()
+    elif case == "win f32":
+        args["win"] = args["win"].float()
+    elif case == "hr int64":
+        args["hr"] = args["hr"].long()
+    elif case == "ok uint8":
+        args["ok"] = args["ok"].to(torch.uint8)
+    elif case == "hr batch differs":
+        args["hr"] = args["hr"][:1].contiguous()
+    elif case == "hc shape differs":
+        args["hc"] = args["hc"][:, :, :8].contiguous()
+    elif case == "off int64":
+        args["off"] = args["off"].long()
+    elif case == "off not pairs":
+        args["off"] = args["off"][:, :1].contiguous()
+    return args
+
+
+BAD_CASES = ["win one channel", "win f32", "hr int64", "ok uint8",
+             "hr batch differs", "hc shape differs", "off int64",
+             "off not pairs"]
+
+
+@pytest.mark.parametrize("case", BAD_CASES)
+def test_sweep_and_kernel_wrapper_reject_what_the_kernel_does_not_take(case):
+    """Both the dispatcher and the kernel's own wrapper validate dtype and
+    shape: the wrapper's message names the argument, not the device, so
+    its checks ran before the device check."""
+    args = _bad_args(case)
+    with pytest.raises(ValueError, match="must be|differ"):
+        csm.sweep(**args)
+    with pytest.raises(ValueError, match="must be|differ"):
+        csm_cuda.csm_sweep(**args)

@@ -64,3 +64,15 @@ def test_kernel_raises_on_what_it_does_not_take(cuda_device):
                            hc, ok, off)
     with pytest.raises(ValueError):
         csm_cuda.csm_sweep(win, hr.cpu(), hc, ok, off)
+    with pytest.raises(ValueError):  # one channel: the kernel reads two
+        csm_cuda.csm_sweep(win[:, :1].contiguous(), hr, hc, ok, off)
+    with pytest.raises(ValueError):
+        csm_cuda.csm_sweep(win, hr.long(), hc, ok, off)
+    with pytest.raises(ValueError):
+        csm_cuda.csm_sweep(win.float(), hr, hc, ok, off)
+    with pytest.raises(ValueError):
+        csm_cuda.csm_sweep(win, hr, hc, ok.to(torch.uint8), off)
+    with pytest.raises(ValueError):  # hr's batch differs from win's
+        csm_cuda.csm_sweep(win, torch.cat([hr, hr]), hc, ok, off)
+    with pytest.raises(ValueError):
+        csm_cuda.csm_sweep(win, hr, hc, ok, off.long())
