@@ -7,18 +7,30 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
 
 1. Device: requires CUDA (there is no CPU fallback) and prints the card's
    name and power limit as ``nvidia-smi`` reports them.
-2. Build: compiles ``csrc/csm_sweep.cu`` with nvcc for sm_90a from the
-   checkout's sources and prints the build time and ptxas report.
-3. Kernel against plain: the CSM sweep kernel must be ``torch.equal`` to
+2. Build: compiles ``csrc/csm_sweep.cu`` and ``csrc/hit_images.cu`` with
+   nvcc for sm_90a from the checkout's sources, both at once, and prints
+   the build times and ptxas reports.
+3. Kernels against plain: the CSM sweep kernel must be ``torch.equal`` to
    its plain PyTorch version at the main path's shapes (coarse, fine,
-   dense fallback), the loop detector's shape and a degenerate shape;
-   prints the median time of each over 20 timed runs.
-4. The slice: ``create_default_slam(device="cuda")`` at the factory
-   defaults drives the synthetic office sequence for >= 40 keyframes; the
-   same sequence runs through the port on the CPU (plain sweep).  Same
-   keyframe count, poses within one grid cell, ATE below raw odometry,
-   and at least two kernel launches per matched keyframe.
-5. Prints the kernel summary line, the nvidia-smi line, and last
+   dense fallback), the loop detector's shape and a degenerate shape; the
+   hit-image kernel likewise at branch-and-bound's shape, the frontend
+   crop and a degenerate shape; prints the median time of each over 20
+   timed runs.
+4. The frontend slice: ``create_default_slam(device="cuda")`` at the
+   factory defaults drives the synthetic office sequence for >= 40
+   keyframes; the same sequence runs through the port on the CPU (plain
+   sweep).  Same keyframe count, poses within one grid cell, ATE below raw
+   odometry, and at least two sweep launches per matched keyframe.
+5. The loop slice: the same factory with the branch-and-bound loop
+   backend (``LoopDetectorBranchBound`` at the ``BranchBoundConfig``
+   defaults, Schur LM) on the world of ``scripts/eval_ate.py``'s config #3,
+   on the card and through the port on the CPU.  At least one loop edge,
+   one hit-image launch per branch-and-bound match, the same keyframes and
+   loop edges on both devices, poses within tolerance, ATE below raw
+   odometry.  Times per match and per backend step come from an
+   unfenced run after a warm-up; a separate fenced run gives the
+   per-stage breakdown of the matches.
+6. Prints the kernel summary line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.
@@ -48,6 +60,13 @@ TIMED_RUNS = 20
 # Keyframes of the slice's run: at least 40 so several local maps are
 # finished and compacted.
 KEYFRAMES = 48
+# The loop slice's CUDA-vs-CPU tolerances, fixed before its first run: one
+# grid cell in x and y, two theta search steps at 20 m range in heading.
+# Both devices take the same exact integer scores; f32 trig may move a
+# beam's cell, and the GN refinement and the f32 LM solve (cuSOLVER and
+# LAPACK) round differently after each loop closure.
+LOOP_TOL_XY = 0.05
+LOOP_TOL_THETA = 0.005
 
 
 def _nvidia_smi() -> str:
@@ -265,12 +284,305 @@ def check_slice(device):
     return stats, launches
 
 
+def check_hit_kernel(device):
+    """Phase 3, hit images: kernel vs plain on the card at
+    branch-and-bound's shape (T 208, B 512, crop 448), at the frontend
+    crop 320, and with 300 beams of every theta in one cell; about 5% of
+    the pairs dropped as row -1 and 5% with an out-of-crop column."""
+    from my_lidar_graph_slam_v2_tpu_torch.ops import csm, hit_images_cuda
+
+    rng = np.random.default_rng(2)
+    out = []
+    for name, T, B, crop in (("branch_bound", 208, 512, 448),
+                             ("frontend_crop", 208, 512, 320),
+                             ("degenerate", 208, 512, 448)):
+        rows = rng.integers(0, crop, (T, B)).astype(np.int32)
+        cols = rng.integers(0, crop, (T, B)).astype(np.int32)
+        u = rng.uniform(size=(T, B))
+        rows[u < 0.05] = -1
+        cols[(u >= 0.05) & (u < 0.1)] = crop + 3
+        if name == "degenerate":
+            rows[:, :300], cols[:, :300] = 17, 23
+        rows, cols = (torch.as_tensor(a, device=device) for a in (rows, cols))
+        kw = dict(crop_rows=crop, crop_cols=crop)
+        got = hit_images_cuda.hit_images(rows, cols, **kw)
+        ref = csm.hit_images_plain(rows, cols, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"hit-image kernel != plain at shape {name}")
+        if name == "degenerate" and float(got[:, 17, 23].min()) < 300:
+            raise AssertionError("degenerate cell lost counts")
+        err = float((got - ref).abs().max())
+        ms = _median_ms(lambda: hit_images_cuda.hit_images(rows, cols, **kw))
+        plain_ms = _median_ms(lambda: csm.hit_images_plain(rows, cols, **kw))
+        row = dict(shape=name, T=T, B=B, crop=crop, max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms)
+        print(f"hit_kernel {json.dumps(row)}", flush=True)
+        out.append(row)
+    return out
+
+
+def build_loop_sequence(seed: int = 11, laps: float = 1.3):
+    """The world of ``scripts/eval_ate.py``'s config #3: a 12 m office,
+    1.3 laps at 8 cm steps, 181 beams to 12 m, odometry noise
+    (0.05, 0.02)."""
+    from my_lidar_graph_slam_v2_tpu_torch.datasets import synthetic
+
+    world = synthetic.World.office(seed=seed, size=12.0)
+    traj = synthetic.loop_trajectory(size=12.0, laps=laps, step=0.08)
+    return synthetic.generate(
+        world, traj, n_beams=181, max_range=12.0, range_noise=0.01,
+        odom_noise=(0.05, 0.02), seed=seed + 1,
+    )
+
+
+def loop_slam(device, **factory_kw):
+    """``create_default_slam`` with the branch-and-bound loop backend:
+    nearest searcher (travel threshold 6 m, as config #3), the serial
+    ``LoopDetectorBranchBound`` at the ``BranchBoundConfig`` defaults with
+    a linear-solver final matcher, and the Schur LM, inline."""
+    from my_lidar_graph_slam_v2_tpu_torch.graph.optimizer import (
+        OptimizerConfig,
+        PoseGraphOptimizer,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.loop.detector import (
+        LoopDetectorBranchBound,
+        LoopDetectorConfig,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.loop.searcher import (
+        LoopSearcherConfig,
+        LoopSearcherNearest,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.matching.linear_solver import (
+        LinearSolverConfig,
+        ScanMatcherLinearSolver,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.pipeline.backend import (
+        LidarGraphSlamBackend,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.pipeline.factory import (
+        create_default_slam,
+        create_scan_matcher,
+    )
+
+    backend = LidarGraphSlamBackend(
+        LoopSearcherNearest(LoopSearcherConfig(travel_dist_threshold=6.0)),
+        LoopDetectorBranchBound(
+            LoopDetectorConfig(),
+            create_scan_matcher("BranchBound", device=device),
+            ScanMatcherLinearSolver(
+                LinearSolverConfig(), device,
+                name="LoopDetector.FinalScanMatcherLinearSolver"),
+        ),
+        PoseGraphOptimizer(OptimizerConfig(), device=device),
+        inline=True,
+    )
+    return create_default_slam(device=device, backend=backend, **factory_kw)
+
+
+class StageTimer:
+    """Host times and calls of named callables while the context is open,
+    each fenced by device syncs on CUDA if its stage says so; restores
+    them on exit.  A stage's name may be a function of the call's (args,
+    kwargs)."""
+
+    def __init__(self, device, stages):
+        self.device = torch.device(device)
+        self.stages = stages  # (owner, attribute, name, fenced)
+        self.acc = {}
+        self._saved = []
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def __enter__(self):
+        for owner, attr, name, fenced in self.stages:
+            fn = getattr(owner, attr)
+
+            def timed(*args, _fn=fn, _name=name, _fenced=fenced, **kw):
+                if callable(_name):
+                    _name = _name(args, kw)
+                if _fenced:
+                    self._sync()
+                t = time.perf_counter()
+                try:
+                    return _fn(*args, **kw)
+                finally:
+                    if _fenced:
+                        self._sync()
+                    calls, ms = self.acc.get(_name, (0, []))
+                    ms.append((time.perf_counter() - t) * 1e3)
+                    self.acc[_name] = (calls + 1, ms)
+
+            self._saved.append((owner, attr, fn))
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self._saved):
+            setattr(owner, attr, fn)
+        return False
+
+
+def _loop_stages():
+    """The stages of a branch-and-bound match and of a backend step, as
+    (owner, attribute, name, fenced).  The match's own fetches
+    synchronize, so the whole match and the final matcher need no fence;
+    the pieces inside the core are fenced."""
+    from my_lidar_graph_slam_v2_tpu_torch.graph import optimizer
+    from my_lidar_graph_slam_v2_tpu_torch.matching import (
+        branch_bound,
+        linear_solver,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.ops import csm, pool
+    from my_lidar_graph_slam_v2_tpu_torch.pipeline import backend
+
+    return [
+        (backend.LidarGraphSlamBackend, "run_step", "backend step", False),
+        (branch_bound.ScanMatcherBranchBound, "optimize_pose", "bb match",
+         False),
+        (pool, "pyramid", "pyramid (once per map)", True),
+        (csm, "build_hit_images", "hit images", True),
+        (csm, "sweep_from_hits",
+         lambda a, kw: "bound sweep" if kw["stride"] > 1 else "block sweeps",
+         True),
+        (branch_bound, "cost_at", "cost at winner", True),
+        (branch_bound, "covariance_at", "covariance at winner", True),
+        (branch_bound, "fetch", "bb fetches", False),
+        (linear_solver.ScanMatcherLinearSolver, "optimize_pose",
+         "final matcher", False),
+        (optimizer.PoseGraphOptimizer, "optimize", "LM (Schur)", False),
+    ]
+
+
+def run_loop_slice(device, seq, *, stages=(), **factory_kw):
+    """Drive the loop slice over ``seq`` on ``device``; returns the
+    trajectory, loop edges, ground truth at keyframes, the matcher's
+    counters and the times of ``stages`` (see :func:`_loop_stages`)."""
+    device = torch.device(device)
+    slam = loop_slam(device, **factory_kw)
+    timer = StageTimer(device, stages)
+    gt = []
+    with timer:
+        t0 = time.perf_counter()
+        for scan, g in zip(seq.scans, seq.ground_truth):
+            if slam.process_scan(scan, scan.odom_pose):
+                gt.append(g)
+        slam.stop_backend()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    matcher = slam.backend.loop_detector.scan_matcher
+    return dict(
+        est=slam.get_trajectory(), gt=np.asarray(gt), wall=wall,
+        loops=[(e.local_map_node_id, e.scan_node_id)
+               for e in slam.pose_graph.edges if e.is_loop],
+        matches=matcher.matches, blocks=matcher.blocks_swept,
+        fetches=matcher.host_fetches, stages=timer.acc,
+    )
+
+
+def _stage_summary(acc, matches):
+    """Per stage: calls, calls and ms per match, median ms per call."""
+    out = {}
+    for name, (calls, ms) in acc.items():
+        out[name] = dict(
+            calls=calls,
+            calls_per_match=calls / max(matches, 1),
+            ms_per_match=sum(ms) / max(matches, 1),
+            median_ms=statistics.median(ms),
+        )
+    return out
+
+
+def check_loop_slice(device):
+    """Phase 5: the branch-and-bound loop slice on the card vs the CPU.
+
+    A warm-up run of the sequence pays the one-time costs (cuBLAS and
+    cuSOLVER handles, allocator growth).  The timed run follows, with the
+    kernel launch counts set to 0 just before it and read just after it;
+    it times the whole match and the backend step by host clock and adds
+    no device sync.  A third run on the card fences every stage of the
+    match with syncs for the per-stage breakdown (``loop_stages_fenced``)."""
+    from my_lidar_graph_slam_v2_tpu_torch.datasets import synthetic
+    from my_lidar_graph_slam_v2_tpu_torch.ops import csm_cuda, hit_images_cuda
+
+    seq = build_loop_sequence()
+    run_loop_slice(device, seq)
+    torch.cuda.reset_peak_memory_stats(device)
+    csm_cuda.LAUNCHES = 0
+    hit_images_cuda.LAUNCHES = 0
+    unfenced = [s for s in _loop_stages() if not s[3]]
+    gpu = run_loop_slice(device, seq, stages=unfenced)
+    sweep_launches = csm_cuda.LAUNCHES
+    hit_launches = hit_images_cuda.LAUNCHES
+    peak = torch.cuda.max_memory_allocated(device)
+    fenced = run_loop_slice(device, seq, stages=_loop_stages())
+    cpu = run_loop_slice("cpu", seq)
+
+    n_kf = len(gpu["est"])
+    odom = np.stack([s.odom_pose for s in seq.scans])
+    ate = synthetic.ate_rmse(gpu["est"], gpu["gt"])
+    ate_odom = synthetic.ate_rmse(odom, seq.ground_truth)
+    same_kf = len(cpu["est"]) == n_kf
+    d = np.abs(gpu["est"] - cpu["est"]) if same_kf else None
+    stages = _stage_summary(gpu["stages"], gpu["matches"])
+    stats = dict(
+        keyframes=n_kf, keyframes_cpu=len(cpu["est"]), scans=len(seq.scans),
+        loop_edges=len(gpu["loops"]), loop_edges_cpu=len(cpu["loops"]),
+        ate_m=ate, ate_cpu_m=synthetic.ate_rmse(cpu["est"], cpu["gt"]),
+        ate_odom_m=ate_odom,
+        bb_matches=gpu["matches"], hit_image_launches=hit_launches,
+        csm_sweep_launches=sweep_launches,
+        blocks_swept_per_match=gpu["blocks"] / max(gpu["matches"], 1),
+        host_fetches_per_bb_match=gpu["fetches"] / max(gpu["matches"], 1),
+        bb_match_ms_median=stages["bb match"]["median_ms"],
+        backend_step_ms_median=stages["backend step"]["median_ms"],
+        wall_s=gpu["wall"], ms_per_keyframe=1e3 * gpu["wall"] / n_kf,
+        cpu_wall_s=cpu["wall"],
+        peak_mem_bytes=peak,
+        max_dxy_m=None if d is None else float(d[:, :2].max()),
+        max_dtheta_rad=None if d is None else float(d[:, 2].max()),
+    )
+    print(f"loop_slice {json.dumps(stats)}", flush=True)
+    print(f"loop_stages {json.dumps(stages)}", flush=True)
+    print(f"loop_stages_fenced "
+          f"{json.dumps(_stage_summary(fenced['stages'], fenced['matches']))}",
+          flush=True)
+    if fenced["loops"] != gpu["loops"]:
+        raise AssertionError("the fenced run closed other loops than the timed run")
+    if gpu["matches"] < 1 or len(gpu["loops"]) < 1:
+        raise AssertionError(
+            f"{gpu['matches']} B&B matches, {len(gpu['loops'])} loop edges")
+    if hit_launches != gpu["matches"]:
+        raise AssertionError(
+            f"{hit_launches} hit-image launches for {gpu['matches']} matches")
+    if sweep_launches < 2 * (n_kf - 1):
+        raise AssertionError(
+            f"{sweep_launches} sweep launches for {n_kf - 1} matched keyframes")
+    if not same_kf:
+        raise AssertionError(
+            f"keyframes differ: cuda {n_kf}, cpu {len(cpu['est'])}")
+    if gpu["loops"] != cpu["loops"]:
+        raise AssertionError(
+            f"loop edges differ: cuda {gpu['loops']}, cpu {cpu['loops']}")
+    if stats["max_dxy_m"] > LOOP_TOL_XY or stats["max_dtheta_rad"] > LOOP_TOL_THETA:
+        raise AssertionError(
+            f"cuda and cpu poses differ beyond tolerance: dxy "
+            f"{stats['max_dxy_m']} (tol {LOOP_TOL_XY}), dtheta "
+            f"{stats['max_dtheta_rad']} (tol {LOOP_TOL_THETA})")
+    if not np.all(np.isfinite(gpu["est"])) or not ate < ate_odom:
+        raise AssertionError(f"ATE {ate} does not beat odometry {ate_odom}")
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port has no CPU "
               "fallback on this path", file=sys.stderr)
         return 1
-    from my_lidar_graph_slam_v2_tpu_torch.ops import csm_cuda
+    from my_lidar_graph_slam_v2_tpu_torch.ops import cuda_build
 
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -278,26 +590,44 @@ def main() -> int:
     smi = _nvidia_smi()
     print(f"device: {smi}", flush=True)
 
-    info = csm_cuda.build()
-    print(f"build: {info['path'].name} in {info['seconds']:.2f} s "
-          f"(cached={info['cached']})", flush=True)
-    for line in info["log"].splitlines():
-        print(f"  nvcc: {line}")
+    t0 = time.perf_counter()
+    built = cuda_build.build("csm_sweep", "hit_images")
+    print(f"build: both kernels in {time.perf_counter() - t0:.2f} s", flush=True)
+    for name, info in built.items():
+        print(f"build: {info['path'].name} in {info['seconds']:.2f} s "
+              f"(cached={info['cached']})", flush=True)
+        for line in info["log"].splitlines():
+            print(f"  nvcc: {line}")
 
     shapes = check_kernel(device)
-    stats, launches = check_slice(device)
+    hit_shapes = check_hit_kernel(device)
+    check_slice(device)
+    loop = check_loop_slice(device)
 
     main_path = [r for r in shapes if r["shape"] in ("coarse", "fine")]
-    print(json.dumps({"kernels": [dict(
-        name="csm_sweep",
-        route="cuda",
-        source="my_lidar_graph_slam_v2_tpu_torch/csrc/csm_sweep.cu",
-        replaces="my_lidar_graph_slam_v2_tpu/ops/csm_pallas.py:86",
-        launches=launches,
-        max_abs_err=max(r["max_abs_err"] for r in shapes),
-        ms=sum(r["ms"] for r in main_path),
-        plain_ms=sum(r["plain_ms"] for r in main_path),
-    )]}))
+    bb_shape = [r for r in hit_shapes if r["shape"] == "branch_bound"]
+    print(json.dumps({"kernels": [
+        dict(
+            name="csm_sweep",
+            route="cuda",
+            source="my_lidar_graph_slam_v2_tpu_torch/csrc/csm_sweep.cu",
+            replaces="my_lidar_graph_slam_v2_tpu/ops/csm_pallas.py:86",
+            launches=loop["csm_sweep_launches"],
+            max_abs_err=max(r["max_abs_err"] for r in shapes),
+            ms=sum(r["ms"] for r in main_path),
+            plain_ms=sum(r["plain_ms"] for r in main_path),
+        ),
+        dict(
+            name="hit_images",
+            route="cuda",
+            source="my_lidar_graph_slam_v2_tpu_torch/csrc/hit_images.cu",
+            replaces="my_lidar_graph_slam_v2_tpu/ops/csm_pallas.py:32",
+            launches=loop["hit_image_launches"],
+            max_abs_err=max(r["max_abs_err"] for r in hit_shapes),
+            ms=bb_shape[0]["ms"],
+            plain_ms=bb_shape[0]["plain_ms"],
+        ),
+    ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

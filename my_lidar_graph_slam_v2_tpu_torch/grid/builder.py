@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import math
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List
 
 import numpy as np
@@ -98,6 +98,8 @@ class LocalMap:
     version: int = 0  # bumped on every raster write
     prob_q: object = None  # [H, W] u8 device tensor (compacted form)
     compacted: bool = False
+    # Pooled maps of the loop matchers, keyed by window
+    coarse_cache: dict = field(default_factory=dict)
 
     def compact(self):
         """Replace the f32 build raster of a finished map with its u8
@@ -106,7 +108,18 @@ class LocalMap:
             return
         self.prob_q = quant.quantize_prob(self.logodds, self.observed)
         self.logodds = None
+        self.coarse_cache.clear()
         self.compacted = True
+
+    def raster(self, resolution: float) -> MapRaster:
+        """The map as a matching raster: the u8 form once compacted, the
+        f32 probabilities before."""
+        if self.compacted:
+            prob = self.prob_q
+        else:
+            prob = rasterize.prob_map(self.logodds, self.observed)
+        return MapRaster(prob, self.observed, resolution, self.offset_xy,
+                         coarse=self.coarse_cache)
 
 
 def pad_scan(scan: ScanData, capacity: int, usable_min: float,
@@ -163,6 +176,22 @@ class GridMapBuilder:
     # ------------------------------------------------------------------
     def latest_local_map(self) -> LocalMap:
         return self.local_maps[-1]
+
+    def local_map_at(self, local_map_id: int) -> LocalMap:
+        return self.local_maps[local_map_id]
+
+    def after_loop_closure(self, pose_graph: PoseGraph):
+        """Recompute the accumulated travel distance from the optimized
+        poses (``GridMapBuilder::UpdateAccumTravelDist``,
+        grid_map_builder.cpp:535-558).  Local map rasters are not rebuilt."""
+        nodes = pose_graph.scan_nodes
+        if len(nodes) < 2:
+            self.accum_travel_dist = 0.0
+            return
+        poses = pose_graph.scan_poses()
+        self.accum_travel_dist = float(
+            np.sum(np.hypot(np.diff(poses[:, 0]), np.diff(poses[:, 1])))
+        )
 
     def append_scan(self, pose_graph: PoseGraph, relative_scan_pose,
                     scan_pose_covariance, scan_data: ScanData) -> bool:

@@ -18,13 +18,20 @@ block-pruned offsets alike.
 
 :func:`sweep` is the entry point: CPU tensors take :func:`sweep_plain`,
 CUDA tensors launch the hand-written kernel (``ops/csm_cuda.py``).
+
+Branch-and-bound keeps the JAX package's two-step form: it builds the hit
+images once per match (:func:`build_hit_images`; on CUDA tensors the
+hand-written kernel of ``ops/hit_images_cuda.py``) and shares them
+between its bound sweep and every block sweep (:func:`sweep_from_hits`, a
+plain f32 matmul against the map patches, exact on u8 maps).
 """
 from __future__ import annotations
 
 import torch
 
+from ..utils import devmath
 from ..utils.transfer import f32
-from . import csm_cuda, quant
+from . import csm_cuda, hit_images_cuda, quant
 
 
 def theta_search_params(ranges, beam_mask, resolution, range_theta, n_theta):
@@ -35,7 +42,7 @@ def theta_search_params(ranges, beam_mask, resolution, range_theta, n_theta):
     dev = ranges.device
     max_range = torch.where(beam_mask, ranges, 0.0).max()
     tt = torch.div(f32(resolution, dev), max_range)
-    step_theta = 2.0 * torch.asin(0.5 * tt)
+    step_theta = 2.0 * devmath.asin(0.5 * tt)
     win_t = torch.ceil(torch.div(f32(0.5 * range_theta, dev), step_theta))
     win_t = win_t.to(torch.int32)
     half = n_theta // 2
@@ -59,8 +66,8 @@ def beam_cells(
     t_idx = theta0_index + torch.arange(n_theta, dtype=torch.int32, device=dev)
     thetas = sensor_pose[2] + t_idx.to(torch.float32) * step_theta
     ang = thetas[:, None] + angles[None, :]
-    hx = sensor_pose[0] + ranges[None, :] * torch.cos(ang)
-    hy = sensor_pose[1] + ranges[None, :] * torch.sin(ang)
+    hx = sensor_pose[0] + ranges[None, :] * devmath.cos(ang)
+    hy = sensor_pose[1] + ranges[None, :] * devmath.sin(ang)
     col = torch.floor(torch.div(hx - offset_xy[0], res)).to(torch.int32)
     row = torch.floor(torch.div(hy - offset_xy[1], res)).to(torch.int32)
 
@@ -181,3 +188,91 @@ def sweep(win, hr, hc, ok, off):
         csm_cuda.check_sweep_args(win, hr, hc, ok, off)
         return sweep_plain(win, hr, hc, ok, off)
     return csm_cuda.csm_sweep(win, hr, hc, ok, off)
+
+
+def hit_images_plain(rows, cols, *, crop_rows, crop_cols):
+    """Plain PyTorch form of the hit-image build: f32 ``[T, crop_rows,
+    crop_cols]`` with ``out[t, r, c]`` the number of beams b with
+    ``(rows[t, b], cols[t, b]) == (r, c)``.  Pairs outside the crop
+    (row -1 included) add nothing."""
+    T, B = rows.shape
+    ok = (rows >= 0) & (rows < crop_rows) & (cols >= 0) & (cols < crop_cols)
+    t = torch.arange(T, dtype=torch.int64, device=rows.device)[:, None]
+    key = (t * crop_rows + rows.long()) * crop_cols + cols.long()
+    out = torch.zeros(T * crop_rows * crop_cols, dtype=torch.float32,
+                      device=rows.device)
+    out.index_put_((torch.where(ok, key, 0).reshape(-1),),
+                   ok.reshape(-1).to(torch.float32), accumulate=True)
+    return out.reshape(T, crop_rows, crop_cols)
+
+
+def hit_images(rows, cols, *, crop_rows, crop_cols):
+    """Hit images from crop cells with validity folded in (row -1 drops a
+    beam): CPU tensors take :func:`hit_images_plain`; anything else goes
+    to the kernel's wrapper, which launches on CUDA tensors and raises on
+    anything it does not take."""
+    if rows.device.type == "cpu":
+        hit_images_cuda.check_hit_args(rows, cols, crop_rows, crop_cols)
+        return hit_images_plain(rows, cols, crop_rows=crop_rows,
+                                crop_cols=crop_cols)
+    return hit_images_cuda.hit_images(rows, cols, crop_rows=crop_rows,
+                                      crop_cols=crop_cols)
+
+
+def build_hit_images(hr, hc, valid, theta_mask, *, crop_rows, crop_cols):
+    """Per-theta hit-count images, f32 ``[T, crop_rows, crop_cols]``
+    (``ops/csm.py:build_hit_images``).  Beam validity and the theta mask
+    fold into the rows as -1, the Pallas kernel's convention.  The counts
+    are exact at any multiplicity; the JAX package's bf16 images agree
+    while no cell holds more than 256 beams."""
+    ok = valid & theta_mask[:, None]
+    rows = torch.where(ok, hr, -1).contiguous()
+    cols = torch.where(ok, hc, -1).contiguous()
+    return hit_images(rows, cols, crop_rows=crop_rows, crop_cols=crop_cols)
+
+
+# Offsets per patch matmul of sweep_from_hits (the JAX package's chunk):
+# bounds the transient patch matrix to 256 crop-sized planes per channel.
+_PATCH_CHUNK = 256
+
+
+def sweep_from_hits(hit_img, r0, c0, prob, observed, x0, y0, *, nx, ny,
+                    stride, precision):
+    """Window sweep of precomputed hit images against a u8 map
+    (``ops/csm.py:sweep_from_hits``, its u8-exact branch): ``(scores,
+    known)`` f32 ``[T, ny, nx]`` for offsets ``(x0 + i * stride, y0 + j *
+    stride)``.
+
+    The map patches at every offset are multiplied with the flat hit
+    images in f32 (TF32 off, see ``pipeline/factory.py``): the terms are
+    integers and the sums stay below 2^24, so they are exact in any
+    order, and one multiply by f32(1/255) gives the JAX package's values
+    bit for bit.  f32 maps and ``precision="highest"`` raise."""
+    if precision == "highest":
+        raise NotImplementedError(
+            "precision='highest' (f32 maps) is not ported (ROADMAP item "
+            "1.4); the sweep takes u8 maps"
+        )
+    if torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            "sweep_from_hits needs full f32 matmuls: TF32 would round the "
+            "integer sums (set torch.backends.cuda.matmul.allow_tf32 = False)"
+        )
+    T, CR, CC = hit_img.shape
+    in_rows = CR + (ny - 1) * stride
+    in_cols = CC + (nx - 1) * stride
+    inp = sweep_input_window(prob, observed, r0, c0, x0, y0,
+                             in_rows=in_rows, in_cols=in_cols)
+    views = inp.to(torch.float32).unfold(1, CR, stride).unfold(2, CC, stride)
+    hit_t = hit_img.reshape(T, CR * CC).t()
+    off = grid_offsets(ny, nx, 1, inp.device).long()
+    n_off = ny * nx
+    out = torch.empty((2, n_off, T), dtype=torch.float32, device=inp.device)
+    for o0 in range(0, n_off, _PATCH_CHUNK):
+        o = off[o0:o0 + _PATCH_CHUNK]
+        n = o.shape[0]
+        # [2 * n, CR * CC] patches (both channels) @ [CR * CC, T]: one GEMM
+        patches = views[:, o[:, 0], o[:, 1]].reshape(2 * n, CR * CC)
+        out[:, o0:o0 + n] = (patches @ hit_t).view(2, n, T)
+    out = out * float(quant.INV255)
+    return (out[0].t().reshape(T, ny, nx), out[1].t().reshape(T, ny, nx))

@@ -1,10 +1,10 @@
 """Launch wrapper of the hand-written CUDA CSM sweep
 (``csrc/csm_sweep.cu``), the counterpart of ``ops/csm_pallas.py``.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface on first use, cached under ``build/kernels/`` by
-a hash of the source, and bound with ``ctypes``.  Nothing is built or
-loaded when this module is imported.
+The kernel is compiled with ``nvcc`` for ``sm_90a`` on first use
+(``ops/cuda_build.py``: one shared library per source, cached under
+``build/kernels/`` by a hash of the source) and bound with ``ctypes``.
+Nothing is built or loaded when this module is imported.
 
 ``LAUNCHES`` counts kernel launches; it is incremented only here, right
 after a launch that the runtime accepted.
@@ -12,72 +12,21 @@ after a launch that the runtime accepted.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
-from . import quant
+from . import cuda_build, quant
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "csm_sweep.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+NAME = "csm_sweep"
 
 LAUNCHES = 0
 _lib = None
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ([Path(home) / "bin" / "nvcc"] if home else []) + [
-        Path("/usr/local/cuda/bin/nvcc")
-    ]:
-        if cand.exists():
-            return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME)")
-    return found
-
-
-def build() -> dict:
-    """Compile the kernel library if this source has not been built yet.
-
-    Returns ``{"path", "seconds", "log", "cached"}``; ``log`` holds
-    nvcc's output, including ``-Xptxas -v``'s register and shared-memory
-    report."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"csm_sweep_{tag}.so"
-    if so.exists():
-        return dict(path=so, seconds=0.0, log="", cached=True)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-            f"{res.stdout}{res.stderr}"
-        )
-    os.replace(tmp, so)
-    return dict(path=so, seconds=seconds, log=res.stdout + res.stderr,
-                cached=False)
-
-
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()["path"]))
+        lib = ctypes.CDLL(str(cuda_build.build(NAME)[NAME]["path"]))
         lib.csm_sweep_launch.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_void_p]

@@ -10,11 +10,16 @@ indices are shifted by -0.5 so the map is interpolated at cell centres
 ``max_iterations`` masked steps, and a finished state stays frozen.  The
 iterate sequence equals the JAX ``while_loop``'s, and no iteration needs
 a host sync to test the stop condition.
+
+The trig, the sums over beams and the 3x3 solves go through
+``utils/devmath.py`` (f64, rounded once to f32), so a match gives the same
+bits on the CPU and on CUDA.
 """
 from __future__ import annotations
 
 import torch
 
+from ..utils import devmath
 from ..utils.transfer import f32
 from .quant import dequant_prob
 
@@ -63,8 +68,8 @@ def _interp_and_grad(prob, observed, frow, fcol):
 
 def _hit_points(sensor_pose, ranges, angles):
     ang = sensor_pose[2] + angles
-    hx = sensor_pose[0] + ranges * torch.cos(ang)
-    hy = sensor_pose[1] + ranges * torch.sin(ang)
+    hx = sensor_pose[0] + ranges * devmath.cos(ang)
+    hy = sensor_pose[1] + ranges * devmath.sin(ang)
     return hx, hy
 
 
@@ -82,7 +87,7 @@ def cost(prob, observed, ranges, angles, mask, sensor_pose, resolution,
     frow, fcol = _frac_indices(hx, hy, resolution, offset_xy)
     value, _, _ = _interp_and_grad(prob, observed, frow, fcol)
     err = torch.where(mask, 1.0 - value, 0.0)
-    return torch.sum(err * err)
+    return devmath.sum(err * err)
 
 
 def hessian_and_residual(prob, observed, ranges, angles, mask, sensor_pose,
@@ -97,14 +102,11 @@ def hessian_and_residual(prob, observed, ranges, angles, mask, sensor_pose,
     rx = hx - sensor_pose[0]
     ry = hy - sensor_pose[1]
     gt = -ry * gx + rx * gy
-    J = torch.stack([gx, gy, gt], dim=-1)  # [B, 3]
-    r = 1.0 - value
-    w = mask.to(torch.float32)
-    Jw = J * w[:, None]
-    H = Jw.T @ J
-    b = Jw.T @ r
-    c = torch.sum(w * r * r)
-    return H, b, c
+    # H = J^T W J, b = J^T W r and c = r^T W r as ONE product of
+    # K = [J | r] ([B, 4]): [[H, b], [b^T, c]] = (W K)^T K.
+    K = torch.stack([gx, gy, gt, 1.0 - value], dim=-1)
+    M = devmath.matmul((K * mask[:, None]).T, K)
+    return M[:3, :3], M[:3, 3], M[3, 3]
 
 
 def covariance(prob, observed, ranges, angles, mask, sensor_pose, resolution,
@@ -114,7 +116,7 @@ def covariance(prob, observed, ranges, angles, mask, sensor_pose, resolution,
         prob, observed, ranges, angles, mask, sensor_pose, resolution,
         offset_xy,
     )
-    return torch.linalg.inv_ex(H).inverse * scale
+    return devmath.inv(H) * scale
 
 
 def gn_refine(prob, observed, ranges, angles, mask, sensor_pose0, resolution,
@@ -126,9 +128,9 @@ def gn_refine(prob, observed, ranges, angles, mask, sensor_pose0, resolution,
     tensors.
 
     Runs ``max_iterations`` masked steps: once the stop test holds, the
-    state stops changing, exactly as the JAX ``while_loop`` exits.  The
-    solves use ``solve_ex`` so a singular system yields non-finite values
-    (rejected like any cost increase) instead of a host-side check."""
+    state stops changing, exactly as the JAX ``while_loop`` exits.  A
+    singular system yields a non-finite step (``devmath.solve``), rejected
+    like any cost increase, instead of a host-side check."""
 
     def eval_at(p):
         return hessian_and_residual(
@@ -143,7 +145,7 @@ def gn_refine(prob, observed, ranges, angles, mask, sensor_pose0, resolution,
     done = torch.zeros((), dtype=torch.bool, device=dev)
     eye = torch.eye(3, dtype=torch.float32, device=dev)
     for _ in range(max_iterations):
-        step = torch.linalg.solve_ex(H + lam * eye, b).result
+        step = devmath.solve(H + lam * eye, b)
         p_new = p + step
         H_new, b_new, c_new = eval_at(p_new)
         accept = c_new < cur

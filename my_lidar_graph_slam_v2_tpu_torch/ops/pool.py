@@ -1,12 +1,12 @@
 """Sliding-window max pooling for the coarse-map precompute.
 
-Port of ``my_lidar_graph_slam_v2_tpu/ops/pool.py:sliding_window_max2d``
+Port of ``my_lidar_graph_slam_v2_tpu/ops/pool.py``
 (reference ``grid_map_builder.cpp:917-1065``): each output cell holds the
 max over the ``win x win`` window *starting* at that cell (extending
 toward higher indices), with shrinking windows at the high edge.  Per axis
 the window max is built by doubling shifted maxima, ``O(log win)``
-elementwise ops.  Max is exact, so the result equals the JAX op bit for
-bit.
+elementwise ops; :func:`pyramid` builds branch-and-bound's levels the same
+way.  Max is exact, so the results equal the JAX ops bit for bit.
 """
 from __future__ import annotations
 
@@ -58,3 +58,22 @@ def sliding_window_max2d(arr: torch.Tensor, win: int) -> torch.Tensor:
         return sliding_window_max2d(arr.to(torch.uint8), win).to(torch.bool)
     out = _axis_window_max(arr, arr.ndim - 2, win)
     return _axis_window_max(out, arr.ndim - 1, win)
+
+
+def pyramid(arr: torch.Tensor, max_height: int):
+    """Coarse-map pyramid for branch-and-bound: heights 0..max_height with
+    window 2^h, all at the original resolution and geometry
+    (``PrecomputeGridMaps``, ``grid_map_builder.cpp:986-1012``).  Level h
+    is the max of 4 shifted copies of level h-1, dtype-min beyond the high
+    edge; bool maps go through u8."""
+    if arr.dtype == torch.bool:
+        return [m.to(torch.bool)
+                for m in pyramid(arr.to(torch.uint8), max_height)]
+    fill = _pad_value(arr.dtype)
+    maps = [arr]
+    for h in range(1, max_height + 1):
+        prev = maps[-1]
+        s = 1 << (h - 1)
+        row = torch.maximum(prev, _shift(prev, prev.ndim - 2, s, fill))
+        maps.append(torch.maximum(row, _shift(row, prev.ndim - 1, s, fill)))
+    return maps

@@ -18,6 +18,11 @@ def quantize_prob(logodds: torch.Tensor, observed: torch.Tensor) -> torch.Tensor
     return torch.round(p * 255.0).to(torch.uint8)
 
 
+def quantize_prob_f32(prob: torch.Tensor) -> torch.Tensor:
+    """u8 raster from an f32 probability raster (0 = unknown)."""
+    return torch.round(prob * 255.0).to(torch.uint8)
+
+
 def dequant_prob(prob: torch.Tensor) -> torch.Tensor:
     """f32 probabilities from either representation (a no-op for float
     inputs)."""

@@ -1,11 +1,10 @@
 """Module factory: build the SLAM system on a given device.
 
-Port of ``my_lidar_graph_slam_v2_tpu/pipeline/factory.py:create_default_slam``
-(``slam_module_factory.cpp``): the reference's default configuration,
-real-time correlative local matcher + linear-solver final matcher,
-outlier filter + interpolator, with the same signature and defaults plus
-``device``, which the factory hands to every module.  The loop-closing
-backend (``create_default_backend``) is ROADMAP item 1.10.
+Port of ``my_lidar_graph_slam_v2_tpu/pipeline/factory.py``
+(``slam_module_factory.cpp``): matchers selected by the reference's type
+names, the default loop-closing backend in its serial form, and the
+reference's default system, with the JAX package's signatures and
+defaults plus ``device``, which the factory hands to every module.
 """
 from __future__ import annotations
 
@@ -15,13 +14,103 @@ import torch
 
 from my_lidar_graph_slam_v2_tpu.metrics.registry import MetricManager
 
+from ..graph.optimizer import OptimizerConfig, PoseGraphOptimizer
 from ..grid.builder import GridMapBuilder, GridMapBuilderConfig
+from ..loop.detector import LoopDetectorConfig, LoopDetectorCorrelative
+from ..loop.searcher import LoopSearcherConfig, LoopSearcherNearest
+from ..matching.branch_bound import BranchBoundConfig, ScanMatcherBranchBound
 from ..matching.correlative import CorrelativeConfig, ScanMatcherCorrelative
 from ..matching.linear_solver import LinearSolverConfig, ScanMatcherLinearSolver
 from ..models.fused_matcher import FusedCorrelativeGNMatcher
 from ..sensor.filters import ScanAccumulator, ScanInterpolator, ScanOutlierFilter
+from .backend import LidarGraphSlamBackend
 from .frontend import FrontendConfig, LidarGraphSlamFrontend
 from .slam import LidarGraphSlam
+
+
+def create_scan_matcher(type_name: str, *, device, **kw):
+    """A scan matcher by the reference's type name, on ``device``."""
+    if type_name == "RealTimeCorrelative":
+        return ScanMatcherCorrelative(CorrelativeConfig(**kw), device)
+    if type_name == "LinearSolver":
+        return ScanMatcherLinearSolver(LinearSolverConfig(**kw), device)
+    if type_name == "BranchBound":
+        return ScanMatcherBranchBound(BranchBoundConfig(**kw), device)
+    if type_name in ("GridSearch", "HillClimbing"):
+        raise NotImplementedError(
+            f"the {type_name} scan matcher is not ported yet (ROADMAP item "
+            "1.15)"
+        )
+    raise ValueError(f"unknown scan matcher type: {type_name}")
+
+
+def create_default_backend(
+    *,
+    device,
+    resolution: float = 0.05,
+    beam_capacity: int = 512,
+    usable_range_max: float = 20.0,
+    n_theta_max: int = 208,
+    crop: int = 448,
+    score_threshold: float = 0.55,
+    known_rate_threshold: float = 0.6,
+    searcher_overrides: Optional[dict] = None,
+    optimizer_overrides: Optional[dict] = None,
+    inline: bool = True,
+    sharded: Optional[bool] = None,
+):
+    """Default backend on ``device``: nearest searcher + the fused
+    correlative loop detector (2.5 m x 2.5 m x 0.5 rad, crop 448) + LM
+    optimizer, matching ``launcher_settings_default.json`` /Backend.
+
+    Only the serial detector (``sharded=False``) is ported.  The JAX
+    default, one batched launch for all of a step's candidates
+    (``parallel/loop_sharded.py``), is the next backend PR; ``sharded=None``
+    and ``sharded=True`` raise until then."""
+    if sharded is not False:
+        raise NotImplementedError(
+            "the batched loop detector (sharded=None/True, "
+            "parallel/loop_sharded.py) is not ported yet: it is the next "
+            "PR of ROADMAP's queue; pass sharded=False for the serial "
+            "detector"
+        )
+    loop_matcher = FusedCorrelativeGNMatcher(
+        CorrelativeConfig(
+            range_x=2.5,
+            range_y=2.5,
+            range_theta=0.5,
+            resolution=resolution,
+            n_theta_max=n_theta_max,
+            crop_rows=crop,
+            crop_cols=crop,
+        ),
+        LinearSolverConfig(resolution=resolution),
+        device,
+        name="LoopDetector.ScanMatcherCorrelative",
+        final_name="LoopDetector.FinalScanMatcherLinearSolver",
+    )
+    final_matcher = ScanMatcherLinearSolver(
+        LinearSolverConfig(resolution=resolution), device,
+        name="LoopDetector.FinalScanMatcherLinearSolver",
+    )
+    detector = LoopDetectorCorrelative(
+        LoopDetectorConfig(
+            score_threshold=score_threshold,
+            known_rate_threshold=known_rate_threshold,
+            beam_capacity=beam_capacity,
+            usable_range_max=usable_range_max,
+        ),
+        loop_matcher,
+        final_matcher,
+        resolution=resolution,
+    )
+    searcher = LoopSearcherNearest(
+        LoopSearcherConfig(**(searcher_overrides or {}))
+    )
+    optimizer = PoseGraphOptimizer(
+        OptimizerConfig(**(optimizer_overrides or {})), device=device
+    )
+    return LidarGraphSlamBackend(searcher, detector, optimizer, inline=inline)
 
 
 def create_default_slam(

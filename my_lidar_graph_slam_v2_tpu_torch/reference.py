@@ -11,7 +11,10 @@ import numpy as np
 
 from my_lidar_graph_slam_v2_tpu.matching.types import MapRaster
 
-from .grid.builder import GridMapBuilderConfig
+from .graph.loss import LossFunction
+from .graph.optimizer import OptimizerConfig
+from .grid.builder import GridMapBuilderConfig, LocalMap
+from .matching.branch_bound import BranchBoundConfig
 from .matching.correlative import CorrelativeConfig
 from .matching.cost import CostConfig
 from .matching.linear_solver import LinearSolverConfig
@@ -24,6 +27,19 @@ def correlative_config(fields: dict) -> CorrelativeConfig:
     if fields.get("cost") is not None:
         fields["cost"] = CostConfig(**fields["cost"])
     return CorrelativeConfig(**fields)
+
+
+def branch_bound_config(fields: dict) -> BranchBoundConfig:
+    fields = dict(fields)
+    if fields.get("cost") is not None:
+        fields["cost"] = CostConfig(**fields["cost"])
+    return BranchBoundConfig(**fields)
+
+
+def optimizer_config(fields: dict) -> OptimizerConfig:
+    fields = dict(fields)
+    fields["loss"] = LossFunction(**fields["loss"])
+    return OptimizerConfig(**fields)
 
 
 def linear_solver_config(fields: dict) -> LinearSolverConfig:
@@ -68,3 +84,22 @@ def fold_inputs(deltas, shifts, valid, offset_xy, max_shift, device,
     if map_pose is not None:
         out["map_pose"] = np.asarray(map_pose, np.float64)
     return out
+
+
+def local_map(local_map_id, offset_xy, device, *, logodds=None,
+              observed=None, prob_q=None, version=0,
+              finished=True) -> LocalMap:
+    """A port LocalMap from NumPy map state: either a live f32 ``logodds``
+    raster or a compacted u8 ``prob_q`` raster, with its ``observed``
+    mask (the state ``grid/map_cache.py`` reads)."""
+    compacted = prob_q is not None
+    return LocalMap(
+        local_map_id,
+        None if compacted else to_device(logodds, device, np.float32),
+        to_device(observed, device, bool),
+        np.asarray(offset_xy, np.float64),
+        scan_node_id_min=0, scan_node_id_max=0, finished=finished,
+        version=version,
+        prob_q=to_device(prob_q, device, np.uint8) if compacted else None,
+        compacted=compacted,
+    )

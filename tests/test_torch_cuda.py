@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from my_lidar_graph_slam_v2_tpu_torch.ops import csm, csm_cuda
+from my_lidar_graph_slam_v2_tpu_torch.ops import csm, csm_cuda, hit_images_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -76,3 +76,131 @@ def test_kernel_raises_on_what_it_does_not_take(cuda_device):
         csm_cuda.csm_sweep(win, torch.cat([hr, hr]), hc, ok, off)
     with pytest.raises(ValueError):
         csm_cuda.csm_sweep(win, hr, hc, ok, off.long())
+
+
+# (T, B, crop_rows, crop_cols, pile): branch-and-bound's shape, the
+# frontend crop, an odd non-square shape, and 300 beams of every theta in
+# one cell.
+@pytest.mark.parametrize("shape", [
+    (208, 512, 448, 448, 0),
+    (208, 512, 320, 320, 0),
+    (7, 333, 40, 56, 0),
+    (16, 512, 64, 64, 300),
+])
+def test_hit_kernel_equals_plain(cuda_device, shape):
+    T, B, CR, CC, pile = shape
+    rng = np.random.default_rng(sum(shape))
+    rows = rng.integers(-3, CR + 3, (T, B)).astype(np.int32)
+    cols = rng.integers(-3, CC + 3, (T, B)).astype(np.int32)
+    rows[rng.uniform(size=(T, B)) < 0.05] = -1
+    rows[:, :pile], cols[:, :pile] = 5, 7
+    rows, cols = torch.as_tensor(rows), torch.as_tensor(cols)
+    ref = csm.hit_images_plain(rows, cols, crop_rows=CR, crop_cols=CC)
+    before = hit_images_cuda.LAUNCHES
+    out = csm.hit_images(rows.to(cuda_device), cols.to(cuda_device),
+                         crop_rows=CR, crop_cols=CC)
+    torch.cuda.synchronize(cuda_device)
+    assert hit_images_cuda.LAUNCHES == before + 1
+    assert torch.equal(out.cpu(), ref)
+    if pile:
+        assert float(out[:, 5, 7].min()) >= pile
+
+
+def test_hit_kernel_raises_on_what_it_does_not_take(cuda_device):
+    rows = torch.zeros((4, 32), dtype=torch.int32, device=cuda_device)
+    kw = dict(crop_rows=8, crop_cols=8)
+    before = hit_images_cuda.LAUNCHES
+    with pytest.raises(ValueError):  # CPU tensors: no plain fallback here
+        hit_images_cuda.hit_images(rows.cpu(), rows.cpu(), **kw)
+    with pytest.raises(ValueError):
+        hit_images_cuda.hit_images(rows.long(), rows, **kw)
+    with pytest.raises(ValueError):
+        hit_images_cuda.hit_images(rows, rows[:, :16], **kw)
+    with pytest.raises(ValueError):
+        hit_images_cuda.hit_images(rows, rows.cpu(), **kw)
+    with pytest.raises(ValueError):  # not contiguous
+        hit_images_cuda.hit_images(rows.t(), rows.t(), **kw)
+    with pytest.raises(ValueError):
+        hit_images_cuda.hit_images(rows, rows, crop_rows=0, crop_cols=8)
+    assert hit_images_cuda.LAUNCHES == before
+
+
+def test_sweep_from_hits_cuda_equals_cpu(cuda_device):
+    """Branch-and-bound's f32 patch matmul is exact on the card too (TF32
+    off): bound and block sweeps equal the CPU's bit for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(7)
+    prob = torch.as_tensor(rng.integers(0, 256, (600, 560)).astype(np.uint8))
+    obs = torch.as_tensor(rng.uniform(size=(600, 560)) < 0.7)
+    # real hit images: at most 512 beams per theta, so every sum < 2^24
+    hit = csm.hit_images_plain(
+        torch.as_tensor(rng.integers(0, 448, (32, 512)).astype(np.int32)),
+        torch.as_tensor(rng.integers(0, 448, (32, 512)).astype(np.int32)),
+        crop_rows=448, crop_cols=448)
+    r0 = torch.tensor(40, dtype=torch.int32)
+    c0 = torch.tensor(30, dtype=torch.int32)
+    for nx, ny, stride, x0, y0 in ((13, 13, 8, -50, -50), (8, 8, 1, -18, 6)):
+        kw = dict(nx=nx, ny=ny, stride=stride, precision="split")
+        ref = csm.sweep_from_hits(hit, r0, c0, prob, obs, x0, y0, **kw)
+        got = csm.sweep_from_hits(
+            *(a.to(cuda_device) for a in (hit, r0, c0, prob, obs)), x0, y0,
+            **kw)
+        for g, r in zip(got, ref):
+            assert torch.equal(g.cpu(), r)
+
+
+def test_matching_and_lm_are_bitwise_equal_on_cuda_and_cpu(cuda_device):
+    """The f32 math that differs by device (trig, sums over beams, the
+    small solves, the LM) runs through ``utils/devmath.py`` or in f64, so
+    a match and a pose-graph solve give the same bits on the card and on
+    the CPU; without that, CUDA and CPU runs of one sequence drift apart
+    (see ``utils/devmath.py``)."""
+    from my_lidar_graph_slam_v2_tpu_torch.graph.optimizer import (
+        OptimizerConfig,
+        PoseGraphOptimizer,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.ops import gauss_newton
+
+    rng = np.random.default_rng(3)
+    prob = torch.as_tensor(rng.integers(0, 256, (400, 400)).astype(np.uint8))
+    obs = torch.as_tensor(rng.uniform(size=(400, 400)) < 0.8)
+    ranges = torch.as_tensor(rng.uniform(1, 8, 512).astype(np.float32))
+    angles = torch.as_tensor(np.linspace(-3, 3, 512).astype(np.float32))
+    mask = torch.as_tensor(rng.uniform(size=512) < 0.9)
+    pose = torch.tensor([0.3, -0.2, 0.1])
+    off = torch.tensor([-10.0, -10.0])
+    args = (prob, obs, ranges, angles, mask, pose, 0.05, off)
+    ref = gauss_newton.gn_refine(*args)
+    got = gauss_newton.gn_refine(*(a.to(cuda_device) if torch.is_tensor(a)
+                                   else a for a in args))
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+    cov = gauss_newton.covariance(*(a.to(cuda_device) if torch.is_tensor(a)
+                                    else a for a in args))
+    assert torch.equal(cov.cpu(), gauss_newton.covariance(*args))
+
+    # an over-constrained graph: noisy intra edges, an inter edge per map,
+    # and loop edges from map 0 to the last scans
+    M, per_map = 4, 6
+    N = M * per_map
+    mi = list(np.repeat(np.arange(M), per_map)) + list(range(M - 1)) + [0] * 4
+    si = list(range(N)) + [per_map * (m + 1) for m in range(M - 1)] + \
+        list(range(N - 4, N))
+    il = [0] * (N + M - 1) + [1] * 4
+    E = len(mi)
+    edges = (np.array(mi, np.int32), np.array(si, np.int32),
+             np.array(il, np.int32), rng.normal(0, 0.3, (E, 3)),
+             np.tile(np.eye(3) * 100.0, (E, 1, 1)))
+    mp = rng.normal(0, 1, (M, 3))
+    sp = rng.normal(0, 1, (N, 3))
+    for solver in ("dense", "schur"):
+        cfg = OptimizerConfig(solver=solver)
+        a = PoseGraphOptimizer(cfg, device="cpu").optimize(mp, sp, edges)
+        b = PoseGraphOptimizer(cfg, device=cuda_device).optimize(mp, sp, edges)
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_array_equal(a[1], b[1])
+        # the reported error is an f64 sum rounded to f32 at the end; it
+        # may differ in its last f32 bit (the poses above may not)
+        assert a[2]["iterations"] == b[2]["iterations"]
+        for k in ("error", "initial_error"):
+            assert a[2][k] == pytest.approx(b[2][k], rel=2e-7, abs=0)

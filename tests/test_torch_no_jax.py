@@ -1,6 +1,7 @@
 """The port runs without JAX: a fresh interpreter with JAX import blocked
-imports the port, runs one small frontend match through the factory, and
-ends with no ``jax`` module loaded."""
+imports the port, runs a small frontend through the factory with the
+branch-and-bound loop backend, one branch-and-bound loop match and one
+pose-graph solve, and ends with no ``jax`` module loaded."""
 import os
 import subprocess
 import sys
@@ -22,18 +23,55 @@ class _BlockJax(importlib.abc.MetaPathFinder):
 
 sys.meta_path.insert(0, _BlockJax())
 
+from my_lidar_graph_slam_v2_tpu_torch import reference
 from my_lidar_graph_slam_v2_tpu_torch.datasets import synthetic
-from my_lidar_graph_slam_v2_tpu_torch.pipeline.factory import create_default_slam
+from my_lidar_graph_slam_v2_tpu_torch.graph.optimizer import PoseGraphOptimizer
+from my_lidar_graph_slam_v2_tpu_torch.loop.detector import (
+    LoopDetectorBranchBound,
+    LoopDetectorConfig,
+    LoopDetectorEmpty,
+)
+from my_lidar_graph_slam_v2_tpu_torch.loop.searcher import LoopSearcherNearest
+from my_lidar_graph_slam_v2_tpu_torch.matching.linear_solver import (
+    LinearSolverConfig,
+    ScanMatcherLinearSolver,
+)
+from my_lidar_graph_slam_v2_tpu_torch.pipeline.backend import LidarGraphSlamBackend
+from my_lidar_graph_slam_v2_tpu_torch.pipeline.factory import (
+    create_default_backend,
+    create_default_slam,
+    create_scan_matcher,
+)
 
 world = synthetic.World.office(seed=1, size=8.0)
-traj = synthetic.loop_trajectory(size=8.0, laps=0.06, step=0.08)
+traj = synthetic.loop_trajectory(size=8.0, laps=0.2, step=0.08)
 seq = synthetic.generate(world, traj, n_beams=91, max_range=8.0, seed=3)
+bb = create_scan_matcher("BranchBound", device="cpu", n_theta_max=16,
+                         crop_rows=96, crop_cols=96)
+detector = LoopDetectorBranchBound(
+    LoopDetectorConfig(beam_capacity=128, usable_range_max=8.0), bb,
+    ScanMatcherLinearSolver(LinearSolverConfig(), "cpu"))
+backend = LidarGraphSlamBackend(LoopSearcherNearest(), detector,
+                                PoseGraphOptimizer(device="cpu"))
 slam = create_default_slam(device="cpu", map_rows=256, map_cols=256,
                            beam_capacity=128, samples_per_beam=64,
-                           usable_range_max=8.0, n_theta_max=32, crop=128)
+                           usable_range_max=8.0, n_theta_max=32, crop=128,
+                           backend=backend)
 for scan in seq.scans:
     slam.process_scan(scan, scan.odom_pose)
+slam.stop_backend()
 assert slam.frontend.scan_matcher.host_fetches >= 1, "no match ran"
+assert len(slam.builder.local_maps) >= 2
+node = slam.pose_graph.scan_nodes[-1]
+q = dict(query_node=node, ref_node=node,
+         local_map=slam.builder.local_map_at(0),
+         local_map_node=slam.pose_graph.local_map_nodes[0])
+detector.detect([q])
+assert bb.matches == 1 and LoopDetectorEmpty().detect([q]) == []
+snap = slam.get_pose_graph_for_optimization()
+_, _, stats = backend.optimizer.optimize(*snap[2:])
+assert stats["iterations"] >= 1
+create_default_backend(device="cpu", sharded=False)
 assert "jax" not in sys.modules
 print("ok", slam.process_count)
 """
