@@ -11,26 +11,38 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    nvcc for sm_90a from the checkout's sources, both at once, and prints
    the build times and ptxas reports.
 3. Kernels against plain: the CSM sweep kernel must be ``torch.equal`` to
-   its plain PyTorch version at the main path's shapes (coarse, fine,
-   dense fallback), the loop detector's shape and a degenerate shape; the
-   hit-image kernel likewise at branch-and-bound's shape, the frontend
-   crop and a degenerate shape; prints the median time of each over 20
-   timed runs.
+   its plain PyTorch version at every sweep the system runs
+   (:func:`kernel_shapes`: the frontend's coarse, fine and dense sweeps,
+   the serial correlative loop detector's crop-448 coarse and block
+   sweeps, the same block sweep for a batch of 8, and 300 beams in one
+   cell); the hit-image kernel likewise at branch-and-bound's shape, the
+   frontend crop and a degenerate shape.  Each kernel's device time comes
+   from CUDA-graph replays (:func:`_graph_ms`), beside its bound, the
+   plain version's time and one library call's (``F.conv2d`` of the
+   window with hit-image filters for a one-tile sweep, ``torch.bincount``
+   for the hit images).
 4. The frontend slice: ``create_default_slam(device="cuda")`` at the
    factory defaults drives the synthetic office sequence for >= 40
    keyframes; the same sequence runs through the port on the CPU (plain
    sweep).  Same keyframe count, poses within one grid cell, ATE below raw
    odometry, and at least two sweep launches per matched keyframe.
-5. The loop slice: the same factory with the branch-and-bound loop
-   backend (``LoopDetectorBranchBound`` at the ``BranchBoundConfig``
-   defaults, Schur LM) on the world of ``scripts/eval_ate.py``'s config #3,
-   on the card and through the port on the CPU.  At least one loop edge,
-   one hit-image launch per branch-and-bound match, the same keyframes and
-   loop edges on both devices, poses within tolerance, ATE below raw
-   odometry.  Times per match and per backend step come from an
-   unfenced run after a warm-up; a separate fenced run gives the
-   per-stage breakdown of the matches.
-6. Prints the kernel summary line, the nvidia-smi line, and last
+5. The branch-and-bound loop slice: the same factory with the
+   branch-and-bound loop backend (``LoopDetectorBranchBound`` at the
+   ``BranchBoundConfig`` defaults, Schur LM) on the world of
+   ``scripts/eval_ate.py``'s config #3, on the card and through the port
+   on the CPU.  At least one loop edge, one hit-image launch per
+   branch-and-bound match, the same keyframes and loop edges on both
+   devices, poses within tolerance, ATE below raw odometry.  Times per
+   match and per backend step come from an unfenced run after a warm-up;
+   a separate fenced run gives the per-stage breakdown of the matches.
+6. The correlative loop slice: the same world through the port's default
+   backend, ``create_default_backend(sharded=False)`` (the serial
+   correlative loop detector at crop 448), on the card and on the CPU:
+   the same keyframes and loop edges, bitwise-equal poses, at least one
+   loop edge, ATE below odometry's; prints its sweep launches and the
+   median ms per loop match.
+7. Prints the kernel summary line (every number of it measured or, for
+   ``bound_ms``, computed in this run), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.
@@ -67,6 +79,16 @@ KEYFRAMES = 48
 # LAPACK) round differently after each loop closure.
 LOOP_TOL_XY = 0.05
 LOOP_TOL_THETA = 0.005
+# Kernel launches captured in one CUDA graph for a device time.
+GRAPH_LAUNCHES = 20
+# The card's peaks behind every ``bound_ms`` (H100 SXM at its 700 W limit):
+# HBM bytes/s from the data sheet, and int32 adds/s as 132 SMs x 64 INT32
+# lanes x the 1.98 GHz boost clock.
+HBM_BYTES_PER_S = 3.35e12
+INT32_ADDS_PER_S = 132 * 64 * 1.98e9
+# f32 adds/s outside the tensor cores (data sheet), for the hit images'
+# atomic adds.
+F32_OPS_PER_S = 67e12
 
 
 def _nvidia_smi() -> str:
@@ -77,80 +99,188 @@ def _nvidia_smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def _median_ms(fn, runs=TIMED_RUNS, warmup=3):
-    for _ in range(warmup):
-        fn()
+def _graph_ms(fn, launches=GRAPH_LAUNCHES, replays=TIMED_RUNS):
+    """Device ms per call of ``fn``: ``launches`` calls captured in one
+    CUDA graph, the graph replayed between two events ``replays`` times,
+    the median replay divided by ``launches``.  The wrapper's host work
+    (argument checks, allocation, the ctypes call) is not replayed, so
+    this is the kernels' device time with the graph's gaps between them.
+    The inputs stay in L2 between launches, as a window just cut does."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     times = []
-    for _ in range(runs):
+    for _ in range(replays):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        graph.replay()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / launches)
+    del graph
     return statistics.median(times)
 
 
-def _sweep_inputs(rng, N, T, B, crop, in_r, in_c, device):
-    """Random u8 windows and in-crop beam cells, ~95% of beams valid."""
+def _events_ms(fn, calls=TIMED_RUNS, warmup=3):
+    """ms per call of ``fn`` over ``calls`` back-to-back calls between two
+    events: device time where the device is the slower side, the host's
+    enqueue time where the host is (the plain versions and library calls
+    at small shapes; some of them synchronize)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def _bound(nbytes, ops, ops_per_s):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over their peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sweep_bound(s, ok):
+    """Bound of one sweep: each input byte read once (window, beam cells
+    and mask, tile origins), each output byte written once, and one int32
+    add per (valid beam, offset) of this input's mask.  One add serves
+    both channels: a cell's two u8 values fit in one 32-bit word (p | o <<
+    16) and a warp's sums cannot carry between the halves, as the kernel
+    adds them."""
+    N, T, B, K = s["N"], s["T"], s["B"], s["origins"].shape[1]
+    nbytes = (N * s["in_r"] * s["in_c"] * 2 + N * T * B * 9 + N * K * 8
+              + N * T * 2 * s["n_off"] * 4)
+    return _bound(nbytes, int(ok.sum()) * s["n_off"], INT32_ADDS_PER_S)
+
+
+def kernel_shapes():
+    """Every sweep the system runs, as dicts of ``shape``, ``N``, ``T``,
+    ``B``, ``crop``, the window ``in_r`` x ``in_c``, ``tile`` (height,
+    width, stride), the tile origins ``origins`` (i32 ``[N, K, 2]``) and
+    ``n_off``: the frontend's coarse sweep (stride 5, 2x2), fine sweep
+    (top-32 thetas, 10x10) and dense re-run (all 208 thetas); the serial
+    correlative loop detector's coarse sweep (crop 448, 11x11 at stride 5)
+    and block-pruned fine sweep (top-32 thetas, 10 blocks of 5x5 of the
+    11x11-block window); the same block sweep for a batch of 8 candidates
+    (``loop``); and 300 beams of every theta in one cell."""
+    rng = np.random.default_rng(1)
+    b = rng.choice(121, 10, replace=False)
+    blocks = np.stack([b // 11 * 5, b % 11 * 5], -1).astype(np.int32)
+    one = np.zeros((1, 1, 2), np.int32)
+    shapes = [
+        dict(shape="coarse", N=1, T=208, crop=320, win=325, tile=(2, 2, 5),
+             origins=one),
+        dict(shape="fine", N=1, T=32, crop=320, win=329, tile=(10, 10, 1),
+             origins=one),
+        dict(shape="dense", N=1, T=208, crop=320, win=329, tile=(10, 10, 1),
+             origins=one),
+        dict(shape="loop", N=8, T=208, crop=448, win=502, tile=(5, 5, 1),
+             origins=np.repeat(blocks[None], 8, axis=0)),
+        dict(shape="loop_coarse", N=1, T=208, crop=448, win=498,
+             tile=(11, 11, 5), origins=one),
+        dict(shape="loop_fine", N=1, T=32, crop=448, win=502, tile=(5, 5, 1),
+             origins=blocks[None]),
+        dict(shape="degenerate", N=1, T=208, crop=320, win=329,
+             tile=(10, 10, 1), origins=one),
+    ]
+    for s in shapes:
+        s.update(B=512, in_r=s["win"], in_c=s["win"],
+                 n_off=s["origins"].shape[1] * s["tile"][0] * s["tile"][1])
+    return shapes
+
+
+def sweep_inputs(rng, s):
+    """NumPy inputs of shape ``s``: the u8 window ``[N, 2, in_r, in_c]``
+    (prob levels, observed * 255; channels first), beam cells in the crop
+    and a mask with ~95 % of the beams valid; the degenerate shape puts
+    300 valid beams of every theta in one cell."""
+    N, T, B, crop = s["N"], s["T"], s["B"], s["crop"]
     hr = rng.integers(0, crop, (N, T, B)).astype(np.int32)
     hc = rng.integers(0, crop, (N, T, B)).astype(np.int32)
     ok = rng.uniform(size=(N, T, B)) < 0.95
-    prob = rng.integers(0, 256, (N, 1, in_r, in_c))
-    obs = 255 * (rng.uniform(size=(N, 1, in_r, in_c)) < 0.7)
+    if s["shape"] == "degenerate":
+        hr[:, :, :300], hc[:, :, :300], ok[:, :, :300] = 17, 23, True
+    prob = rng.integers(0, 256, (N, 1, s["in_r"], s["in_c"]))
+    obs = 255 * (rng.uniform(size=(N, 1, s["in_r"], s["in_c"])) < 0.7)
     win = np.concatenate([prob, obs], axis=1).astype(np.uint8)
-    return [torch.as_tensor(a, device=device) for a in (win, hr, hc, ok)]
+    return win, hr, hc, ok
 
 
-def kernel_shapes(device):
-    """(name, N, T, B, crop, in_r, in_c, offsets) of every sweep the system
-    runs: frontend coarse (stride 5, 2x2), fine (top-32 thetas, 10x10),
-    dense fallback (all 208 thetas, 10x10), the loop detector's
-    block-pruned sweep (crop 448, 10 blocks x 25 offsets of an 11x11-block
-    window, a batch of 8 candidates) and a degenerate theta set with 300
-    beams in one cell (the int8 certificate's case)."""
+def sweep_library_call(win, hr, hc, ok, s):
+    """One PyTorch call for a one-tile sweep of one candidate: ``F.conv2d``
+    of the f32 window (channels as the batch) with the prebuilt hit images
+    as T filters at the tile's stride (cuDNN TF32 off); None for
+    explicit-tile sweeps.  Returns the call and the unscaled scores it
+    gives (``[T, 2, n_off]``), or (None, None)."""
+    import torch.nn.functional as F
+
     from my_lidar_graph_slam_v2_tpu_torch.ops import csm
 
-    rng = np.random.default_rng(1)
-    blocks = rng.choice(121, 10, replace=False)
-    d = np.arange(5)
-    loop_off = torch.as_tensor(np.stack([
-        ((blocks // 11)[:, None] * 5 + np.repeat(d, 5)[None]).reshape(-1),
-        ((blocks % 11)[:, None] * 5 + np.tile(d, 5)[None]).reshape(-1),
-    ], -1).astype(np.int32), device=device)
-    return [
-        ("coarse", 1, 208, 512, 320, 325, 325, csm.grid_offsets(2, 2, 5, device)),
-        ("fine", 1, 32, 512, 320, 329, 329, csm.grid_offsets(10, 10, 1, device)),
-        ("dense", 1, 208, 512, 320, 329, 329, csm.grid_offsets(10, 10, 1, device)),
-        ("loop", 8, 208, 512, 448, 502, 502, loop_off),
-        ("degenerate", 1, 208, 512, 320, 329, 329,
-         csm.grid_offsets(10, 10, 1, device)),
-    ]
+    if s["N"] != 1 or s["origins"].shape[1] != 1 or s["origins"].any():
+        return None, None
+    th, tw, stride = s["tile"]
+    hits = csm.hit_images_plain(
+        torch.where(ok[0], hr[0], -1), hc[0],
+        crop_rows=s["crop"], crop_cols=s["crop"])[:, None]
+    x = win[0, :, None].to(torch.float32)
+
+    def call():
+        return F.conv2d(x, hits, stride=stride)
+
+    got = call()[:, :, :th, :tw].reshape(2, s["T"], -1).transpose(0, 1)
+    return call, got
 
 
 def check_kernel(device):
-    """Phase 3: kernel vs plain on the card; returns per-shape results."""
-    from my_lidar_graph_slam_v2_tpu_torch.ops import csm, csm_cuda
+    """Phase 3: the sweep kernel vs its plain version at every shape of
+    :func:`kernel_shapes`; device time, plain and library times, bound."""
+    from my_lidar_graph_slam_v2_tpu_torch.ops import csm, csm_cuda, quant
 
     rng = np.random.default_rng(0)
     out = []
-    for name, N, T, B, crop, in_r, in_c, off in kernel_shapes(device):
-        win, hr, hc, ok = _sweep_inputs(rng, N, T, B, crop, in_r, in_c, device)
-        if name == "degenerate":
-            hr[:, :, :300], hc[:, :, :300], ok[:, :, :300] = 17, 23, True
-        args = (win, hr, hc, ok, off)
-        got = csm_cuda.csm_sweep(*args)
-        ref = csm.sweep_plain(*args)
+    for s in kernel_shapes():
+        win, hr, hc, ok = (torch.as_tensor(a, device=device)
+                           for a in sweep_inputs(rng, s))
+        th, tw, stride = s["tile"]
+        kw = dict(tile_h=th, tile_w=tw, stride=stride)
+        args = (win.permute(0, 2, 3, 1).contiguous(), hr, hc, ok,
+                torch.as_tensor(s["origins"], device=device))
+        got = csm_cuda.csm_sweep(*args, **kw)
+        ref = csm.sweep_tiles_plain(*args, **kw)
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
-            raise AssertionError(f"kernel != plain at shape {name}")
-        err = float((got - ref).abs().max())
-        ms = _median_ms(lambda: csm_cuda.csm_sweep(*args))
-        plain_ms = _median_ms(lambda: csm.sweep_plain(*args))
-        row = dict(shape=name, N=N, T=T, B=B, crop=crop, n_off=int(off.shape[0]),
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            raise AssertionError(f"kernel != plain at shape {s['shape']}")
+        lib, lib_out = sweep_library_call(win, hr, hc, ok, s)
+        bound_ms, bound_by = sweep_bound(s, ok)
+        ms = _graph_ms(lambda: csm_cuda.csm_sweep(*args, **kw))
+        row = dict(
+            shape=s["shape"], N=s["N"], T=s["T"], B=s["B"], crop=s["crop"],
+            tile=list(s["tile"]), tiles=int(s["origins"].shape[1]),
+            n_off=s["n_off"], max_abs_err=float((got - ref).abs().max()),
+            ms=ms, plain_ms=_events_ms(
+                lambda: csm.sweep_tiles_plain(*args, **kw)),
+            bound_ms=bound_ms, bound_by=bound_by, pct_of_bound=100 * bound_ms / ms,
+            library_ms=None if lib is None else _events_ms(lib),
+            library_max_abs_err=None if lib is None else float(
+                (lib_out * float(quant.INV255) - got[0]).abs().max()),
+        )
         print(f"kernel {json.dumps(row)}", flush=True)
         out.append(row)
     return out
@@ -313,10 +443,24 @@ def check_hit_kernel(device):
         if name == "degenerate" and float(got[:, 17, 23].min()) < 300:
             raise AssertionError("degenerate cell lost counts")
         err = float((got - ref).abs().max())
-        ms = _median_ms(lambda: hit_images_cuda.hit_images(rows, cols, **kw))
-        plain_ms = _median_ms(lambda: csm.hit_images_plain(rows, cols, **kw))
+        ms = _graph_ms(lambda: hit_images_cuda.hit_images(rows, cols, **kw))
+        plain_ms = _events_ms(lambda: csm.hit_images_plain(rows, cols, **kw))
+        # library: one torch.bincount of the flat (theta, row, col) keys
+        inside = (rows >= 0) & (rows < crop) & (cols >= 0) & (cols < crop)
+        t = torch.arange(T, device=device)[:, None]
+        keys = ((t * crop + rows) * crop + cols)[inside]
+        lib = torch.bincount(keys, minlength=T * crop * crop)
+        if not torch.equal(lib.reshape(T, crop, crop).to(torch.float32), ref):
+            raise AssertionError(f"bincount != plain at shape {name}")
+        library_ms = _events_ms(
+            lambda: torch.bincount(keys, minlength=T * crop * crop))
+        # bytes: rows and cols read, the f32 image written; one f32 add
+        # per pair in the crop
+        bound_ms, bound_by = _bound(T * B * 8 + T * crop * crop * 4,
+                                    int(inside.sum()), F32_OPS_PER_S)
         row = dict(shape=name, T=T, B=B, crop=crop, max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms)
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   pct_of_bound=100 * bound_ms / ms, library_ms=library_ms)
         print(f"hit_kernel {json.dumps(row)}", flush=True)
         out.append(row)
     return out
@@ -380,15 +524,35 @@ def loop_slam(device, **factory_kw):
     return create_default_slam(device=device, backend=backend, **factory_kw)
 
 
+def correlative_loop_slam(device, **factory_kw):
+    """``create_default_slam`` with ``create_default_backend(sharded=False)``,
+    the port's default backend: the serial correlative loop detector (the
+    fused CSM + GN matcher at 2.5 m x 2.5 m x 0.5 rad, T 208, crop 448),
+    nearest searcher (travel threshold 6 m, as config #3) and the Schur LM,
+    inline."""
+    from my_lidar_graph_slam_v2_tpu_torch.pipeline.factory import (
+        create_default_backend,
+        create_default_slam,
+    )
+
+    backend = create_default_backend(
+        device=device, sharded=False,
+        searcher_overrides=dict(travel_dist_threshold=6.0))
+    return create_default_slam(device=device, backend=backend, **factory_kw)
+
+
 class StageTimer:
     """Host times and calls of named callables while the context is open,
     each fenced by device syncs on CUDA if its stage says so; restores
     them on exit.  A stage's name may be a function of the call's (args,
-    kwargs)."""
+    kwargs).  With ``count`` (a function returning a running count, such
+    as a kernel's launches) each stage also sums the count's growth over
+    its calls."""
 
-    def __init__(self, device, stages):
+    def __init__(self, device, stages, count=None):
         self.device = torch.device(device)
         self.stages = stages  # (owner, attribute, name, fenced)
+        self.count = count
         self.acc = {}
         self._saved = []
 
@@ -405,15 +569,18 @@ class StageTimer:
                     _name = _name(args, kw)
                 if _fenced:
                     self._sync()
+                n0 = self.count() if self.count else None
                 t = time.perf_counter()
                 try:
                     return _fn(*args, **kw)
                 finally:
                     if _fenced:
                         self._sync()
-                    calls, ms = self.acc.get(_name, (0, []))
+                    calls, ms, n = self.acc.get(_name, (0, [], 0))
                     ms.append((time.perf_counter() - t) * 1e3)
-                    self.acc[_name] = (calls + 1, ms)
+                    if n0 is not None:
+                        n += self.count() - n0
+                    self.acc[_name] = (calls + 1, ms, n)
 
             self._saved.append((owner, attr, fn))
             setattr(owner, attr, timed)
@@ -456,13 +623,18 @@ def _loop_stages():
     ]
 
 
-def run_loop_slice(device, seq, *, stages=(), **factory_kw):
-    """Drive the loop slice over ``seq`` on ``device``; returns the
-    trajectory, loop edges, ground truth at keyframes, the matcher's
-    counters and the times of ``stages`` (see :func:`_loop_stages`)."""
+def run_loop_slice(device, seq, *, stages=(), make_slam=loop_slam, count=None,
+                   **factory_kw):
+    """Drive a loop slice (``make_slam``: :func:`loop_slam` or
+    :func:`correlative_loop_slam`) over ``seq`` on ``device``; returns the
+    trajectory, loop edges, ground truth at keyframes, the loop matcher
+    and the times of ``stages`` (see :func:`_loop_stages`; a callable
+    gets the slam object and returns them)."""
     device = torch.device(device)
-    slam = loop_slam(device, **factory_kw)
-    timer = StageTimer(device, stages)
+    slam = make_slam(device, **factory_kw)
+    if callable(stages):
+        stages = stages(slam)
+    timer = StageTimer(device, stages, count)
     gt = []
     with timer:
         t0 = time.perf_counter()
@@ -478,21 +650,25 @@ def run_loop_slice(device, seq, *, stages=(), **factory_kw):
         est=slam.get_trajectory(), gt=np.asarray(gt), wall=wall,
         loops=[(e.local_map_node_id, e.scan_node_id)
                for e in slam.pose_graph.edges if e.is_loop],
-        matches=matcher.matches, blocks=matcher.blocks_swept,
+        matcher=matcher, matches=getattr(matcher, "matches", None),
+        blocks=getattr(matcher, "blocks_swept", None),
         fetches=matcher.host_fetches, stages=timer.acc,
     )
 
 
 def _stage_summary(acc, matches):
-    """Per stage: calls, calls and ms per match, median ms per call."""
+    """Per stage: calls, calls and ms per match, median ms per call, and
+    the counted launches per call where the run counted them."""
     out = {}
-    for name, (calls, ms) in acc.items():
+    for name, (calls, ms, n) in acc.items():
         out[name] = dict(
             calls=calls,
             calls_per_match=calls / max(matches, 1),
             ms_per_match=sum(ms) / max(matches, 1),
             median_ms=statistics.median(ms),
         )
+        if n:
+            out[name]["launches_per_call"] = n / calls
     return out
 
 
@@ -577,6 +753,87 @@ def check_loop_slice(device):
     return stats
 
 
+def check_correlative_loop_slice(device):
+    """Phase 6: the port's default backend,
+    ``create_default_backend(sharded=False)``, on config #3's world, on
+    the card and on the CPU.  Its serial correlative loop detector runs the
+    sweep kernel at crop 448 (coarse: T 208, an 11 x 11 tile at stride 5;
+    fine: the top-32 thetas, 10 tiles of 5 x 5).
+
+    One run on the card (the process is warm from the earlier phases), the
+    launch count set to 0 just before it and read just after; each loop
+    match is timed by host clock (its result fetch synchronizes) with its
+    sweep launches counted, and nothing is fenced.  Requires the same
+    keyframes and loop edges on both devices, bitwise-equal poses, at
+    least one loop edge and ATE below odometry's."""
+    from my_lidar_graph_slam_v2_tpu_torch.datasets import synthetic
+    from my_lidar_graph_slam_v2_tpu_torch.ops import csm_cuda
+
+    seq = build_loop_sequence()
+
+    def stages(slam):
+        return [(slam.backend.loop_detector.scan_matcher, "optimize_pose",
+                 "loop match", False),
+                (slam.backend, "run_step", "backend step", False)]
+
+    kw = dict(make_slam=correlative_loop_slam, stages=stages)
+    csm_cuda.LAUNCHES = 0
+    gpu = run_loop_slice(device, seq, count=lambda: csm_cuda.LAUNCHES, **kw)
+    sweep_launches = csm_cuda.LAUNCHES
+    cpu = run_loop_slice("cpu", seq, **kw)
+
+    n_kf = len(gpu["est"])
+    matches = gpu["stages"].get("loop match", (0, [0.0], 0))
+    steps = gpu["stages"].get("backend step", (0, [0.0], 0))
+    odom = np.stack([s.odom_pose for s in seq.scans])
+    ate = synthetic.ate_rmse(gpu["est"], gpu["gt"])
+    ate_odom = synthetic.ate_rmse(odom, seq.ground_truth)
+    same_kf = len(cpu["est"]) == n_kf
+    stats = dict(
+        keyframes=n_kf, keyframes_cpu=len(cpu["est"]),
+        loop_edges=len(gpu["loops"]), loop_edges_cpu=len(cpu["loops"]),
+        ate_m=ate, ate_cpu_m=synthetic.ate_rmse(cpu["est"], cpu["gt"]),
+        ate_odom_m=ate_odom,
+        loop_matches=matches[0], csm_sweep_launches=sweep_launches,
+        loop_match_sweep_launches=matches[2],
+        loop_match_ms_median=statistics.median(matches[1]),
+        backend_steps=steps[0],
+        backend_step_sweep_launches=steps[2],
+        backend_step_ms_median=statistics.median(steps[1]),
+        wall_s=gpu["wall"], cpu_wall_s=cpu["wall"],
+        poses_bitwise_equal=same_kf and np.array_equal(gpu["est"], cpu["est"]),
+    )
+    print(f"correlative_loop_slice {json.dumps(stats)}", flush=True)
+    if matches[0] < 1 or len(gpu["loops"]) < 1:
+        raise AssertionError(
+            f"{matches[0]} loop matches, {len(gpu['loops'])} loop edges")
+    if matches[2] < 2 * matches[0]:
+        raise AssertionError(
+            f"{matches[2]} sweep launches in {matches[0]} loop matches")
+    if not same_kf or gpu["loops"] != cpu["loops"]:
+        raise AssertionError(
+            f"cuda and cpu differ: keyframes {n_kf} / {len(cpu['est'])}, "
+            f"loop edges {gpu['loops']} / {cpu['loops']}")
+    if not stats["poses_bitwise_equal"]:
+        d = np.abs(gpu["est"] - cpu["est"])
+        raise AssertionError(
+            f"cuda and cpu poses differ: dxy {d[:, :2].max()}, dtheta "
+            f"{d[:, 2].max()}")
+    if not np.all(np.isfinite(gpu["est"])) or not ate < ate_odom:
+        raise AssertionError(f"ATE {ate} does not beat odometry {ate_odom}")
+    return stats
+
+
+def _kernel_line(rows, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
+    """Sums of ``keys`` over ``rows``, ``bound_by`` of the larger bound
+    and the share of the bound."""
+    out = {k: (None if any(r[k] is None for r in rows)
+               else sum(r[k] for r in rows)) for k in keys}
+    out["bound_by"] = max(rows, key=lambda r: r["bound_ms"])["bound_by"]
+    out["pct_of_bound"] = 100 * out["bound_ms"] / out["ms"]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port has no CPU "
@@ -601,10 +858,13 @@ def main() -> int:
 
     shapes = check_kernel(device)
     hit_shapes = check_hit_kernel(device)
-    check_slice(device)
+    _, frontend_launches = check_slice(device)
     loop = check_loop_slice(device)
+    corr = check_correlative_loop_slice(device)
 
-    main_path = [r for r in shapes if r["shape"] in ("coarse", "fine")]
+    # Top-level times: the frontend's two sweeps of a keyframe (coarse +
+    # fine) and branch-and-bound's hit images; every shape is in "shapes".
+    frontend = [r for r in shapes if r["shape"] in ("coarse", "fine")]
     bb_shape = [r for r in hit_shapes if r["shape"] == "branch_bound"]
     print(json.dumps({"kernels": [
         dict(
@@ -612,10 +872,14 @@ def main() -> int:
             route="cuda",
             source="my_lidar_graph_slam_v2_tpu_torch/csrc/csm_sweep.cu",
             replaces="my_lidar_graph_slam_v2_tpu/ops/csm_pallas.py:86",
-            launches=loop["csm_sweep_launches"],
+            launches=corr["csm_sweep_launches"],
+            launches_by_path=dict(
+                frontend=frontend_launches,
+                branch_bound_loop=loop["csm_sweep_launches"],
+                correlative_loop=corr["csm_sweep_launches"]),
             max_abs_err=max(r["max_abs_err"] for r in shapes),
-            ms=sum(r["ms"] for r in main_path),
-            plain_ms=sum(r["plain_ms"] for r in main_path),
+            **_kernel_line(frontend),
+            shapes=shapes,
         ),
         dict(
             name="hit_images",
@@ -623,9 +887,10 @@ def main() -> int:
             source="my_lidar_graph_slam_v2_tpu_torch/csrc/hit_images.cu",
             replaces="my_lidar_graph_slam_v2_tpu/ops/csm_pallas.py:32",
             launches=loop["hit_image_launches"],
+            launches_by_path=dict(branch_bound_loop=loop["hit_image_launches"]),
             max_abs_err=max(r["max_abs_err"] for r in hit_shapes),
-            ms=bb_shape[0]["ms"],
-            plain_ms=bb_shape[0]["plain_ms"],
+            **_kernel_line(bb_shape),
+            shapes=hit_shapes,
         ),
     ]}))
     print(smi)

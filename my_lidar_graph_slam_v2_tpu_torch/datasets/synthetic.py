@@ -19,7 +19,7 @@ from typing import List, Tuple
 import numpy as np
 
 from ..core import pose as P
-from my_lidar_graph_slam_v2_tpu.sensor.data import ScanData
+from ..sensor.data import ScanData
 
 
 @dataclass

@@ -27,8 +27,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from my_lidar_graph_slam_v2_tpu.metrics.registry import MetricManager
-
+from ..metrics.registry import MetricManager
 from ..utils import devmath
 from ..utils.transfer import fetch, to_device
 from .loss import LossFunction

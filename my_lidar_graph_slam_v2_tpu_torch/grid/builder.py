@@ -20,7 +20,8 @@ from typing import List
 import numpy as np
 import torch
 
-from my_lidar_graph_slam_v2_tpu.graph.pose_graph import (
+from ..core import pose as P
+from ..graph.pose_graph import (
     CONSTRAINT_ODOMETRY,
     EDGE_INTER,
     EDGE_INTRA,
@@ -29,12 +30,10 @@ from my_lidar_graph_slam_v2_tpu.graph.pose_graph import (
     PoseGraphEdge,
     ScanNode,
 )
-from my_lidar_graph_slam_v2_tpu.matching.types import MapRaster
-from my_lidar_graph_slam_v2_tpu.metrics.registry import MetricManager
-from my_lidar_graph_slam_v2_tpu.sensor.data import ScanData
-
-from ..core import pose as P
+from ..matching.types import MapRaster
+from ..metrics.registry import MetricManager
 from ..ops import quant, rasterize
+from ..sensor.data import ScanData
 from ..utils.transfer import to_device
 
 

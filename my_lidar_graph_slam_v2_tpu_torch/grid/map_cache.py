@@ -24,9 +24,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from my_lidar_graph_slam_v2_tpu.matching.types import MapRaster
-from my_lidar_graph_slam_v2_tpu.metrics.registry import MetricManager
-
+from ..matching.types import MapRaster
+from ..metrics.registry import MetricManager
 from ..ops import quant
 
 

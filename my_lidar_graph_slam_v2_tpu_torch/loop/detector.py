@@ -19,12 +19,11 @@ from typing import List
 import numpy as np
 import torch
 
-from my_lidar_graph_slam_v2_tpu.matching.types import ScanArrays, ScanMatchingQuery
-from my_lidar_graph_slam_v2_tpu.metrics.registry import MetricManager
-
 from ..core import pose as P
 from ..grid.builder import pad_scan
 from ..grid.map_cache import DeviceMapCache
+from ..matching.types import ScanArrays, ScanMatchingQuery
+from ..metrics.registry import MetricManager
 from ..utils.transfer import to_device
 
 

@@ -26,15 +26,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from my_lidar_graph_slam_v2_tpu.matching.types import (
-    ScanMatchingQuery,
-    ScanMatchingSummary,
-)
-
 from ..core import pose as P
 from ..ops import csm, pool
 from ..utils.transfer import fetch, to_device
 from .cost import CostConfig, cost_at, covariance_at
+from .types import (
+    ScanMatchingQuery,
+    ScanMatchingSummary,
+)
 
 
 @dataclass(frozen=True)

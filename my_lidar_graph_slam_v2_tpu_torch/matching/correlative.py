@@ -24,17 +24,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from my_lidar_graph_slam_v2_tpu.matching.types import (
+from ..core import pose as P
+from ..metrics.registry import MetricManager
+from ..ops import csm, pool
+from ..utils.transfer import fetch, to_device
+from .cost import CostConfig, cost_at, covariance_at
+from .types import (
     MapRaster,
     ScanMatchingQuery,
     ScanMatchingSummary,
 )
-from my_lidar_graph_slam_v2_tpu.metrics.registry import MetricManager
-
-from ..core import pose as P
-from ..ops import csm, pool
-from ..utils.transfer import fetch, to_device
-from .cost import CostConfig, cost_at, covariance_at
 
 
 @dataclass(frozen=True)
@@ -132,15 +131,17 @@ def correlative_core(cfg: CorrelativeConfig, prob, observed, coarse_prob,
             prob, observed, r0, c0, x0, y0,
             in_rows=in_rows + LR - 1, in_cols=in_cols + LR - 1,
         )
-        coarse_inp = pool.sliding_window_max2d(seg, LR)[:, :in_rows, :in_cols]
+        pooled = pool.sliding_window_max2d(seg.permute(2, 0, 1), LR)
+        coarse_inp = pooled.permute(1, 2, 0)[:in_rows, :in_cols]
     else:
         coarse_inp = csm.sweep_input_window(
             coarse_prob, coarse_observed, r0, c0, x0, y0,
             in_rows=in_rows, in_cols=in_cols,
         )
+    origin = torch.zeros((1, 1, 2), dtype=torch.int32, device=dev)
     c = csm.sweep(
         coarse_inp.contiguous()[None], hr[None], hc[None], ok_tb[None],
-        csm.grid_offsets(nby, nbx, LR, dev),
+        origin, tile_h=nby, tile_w=nbx, stride=LR,
     )[0]  # [T, 2, nby * nbx]
     c_scores = c[:, 0].reshape(T, nby, nbx)
     c_known = c[:, 1].reshape(T, nby, nbx)
@@ -167,28 +168,27 @@ def correlative_core(cfg: CorrelativeConfig, prob, observed, coarse_prob,
     use_blocks = (not dense) and 0 < cfg.fine_block_b < n_blocks
     if use_blocks:
         # Top-B coarse-block prune: sweep only the offsets of the B blocks
-        # with the largest gated coarse bound.
+        # with the largest gated coarse bound, one LR x LR tile each.
         Bb = cfg.fine_block_b
         c_sel = c_scores[sel_theta] if use_topk else c_scores
         blk_bound = torch.where(ok_rows, c_sel, -math.inf).amax(dim=0)
         bvals, bidx = _top(blk_bound.reshape(-1), Bb + 1)
         blk_next_bound = bvals[Bb]
         bsel = bidx[:Bb]
-        d = torch.arange(LR, device=dev)
-        dj, di = d.repeat_interleave(LR), d.repeat(LR)
-        offs_y = ((bsel // nbx)[:, None] * LR + dj[None, :]).reshape(-1)
-        offs_x = ((bsel % nbx)[:, None] * LR + di[None, :]).reshape(-1)
-        off = torch.stack(
-            [offs_y.clamp(0, nyf - 1), offs_x.clamp(0, nxf - 1)], dim=-1
-        ).to(torch.int32).contiguous()
+        origins = torch.stack([bsel // nbx * LR, bsel % nbx * LR], dim=-1)
+        tile_h = tile_w = LR
         elig_f = ok_rows.reshape(ok_rows.shape[0], -1)[:, bsel]
         elig_f = elig_f.repeat_interleave(LR * LR, dim=1)
     else:
-        off = csm.grid_offsets(nyf, nxf, 1, dev)
-        offs_y, offs_x = off[:, 0].long(), off[:, 1].long()
+        origins = torch.zeros((1, 2), dtype=torch.int64, device=dev)
+        tile_h, tile_w = nyf, nxf
         elig_f = ok_rows.repeat_interleave(LR, dim=1).repeat_interleave(
             LR, dim=2
         ).reshape(ok_rows.shape[0], -1)
+    # The sweep's offsets in its output order (tile-major, then j, then i).
+    off = csm.tile_offsets(origins[None], tile_h=tile_h, tile_w=tile_w,
+                           stride=1)[0]
+    offs_y, offs_x = off[:, 0], off[:, 1]
 
     fine_inp = csm.sweep_input_window(
         prob, observed, r0, c0, x0, y0,
@@ -198,7 +198,10 @@ def correlative_core(cfg: CorrelativeConfig, prob, observed, coarse_prob,
         hr_s, hc_s, ok_s = hr[sel_theta], hc[sel_theta], ok_tb[sel_theta]
     else:
         hr_s, hc_s, ok_s = hr, hc, ok_tb
-    f = csm.sweep(fine_inp[None], hr_s[None], hc_s[None], ok_s[None], off)[0]
+    f = csm.sweep(
+        fine_inp[None], hr_s[None], hc_s[None], ok_s[None],
+        origins.to(torch.int32)[None], tile_h=tile_h, tile_w=tile_w, stride=1,
+    )[0]
     f_scores_f, f_known_f = f[:, 0], f[:, 1]  # [R, n_off]
     n_off = f_scores_f.shape[1]
 

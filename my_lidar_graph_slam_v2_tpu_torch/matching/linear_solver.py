@@ -12,15 +12,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from my_lidar_graph_slam_v2_tpu.matching.types import (
+from ..core import pose as P
+from ..metrics.registry import MetricManager
+from ..ops import gauss_newton
+from ..utils.transfer import fetch, to_device
+from .types import (
     ScanMatchingQuery,
     ScanMatchingSummary,
 )
-from my_lidar_graph_slam_v2_tpu.metrics.registry import MetricManager
-
-from ..core import pose as P
-from ..ops import gauss_newton
-from ..utils.transfer import fetch, to_device
 
 
 @dataclass(frozen=True)

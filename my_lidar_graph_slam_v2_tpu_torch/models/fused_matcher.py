@@ -15,12 +15,6 @@ import time
 import numpy as np
 import torch
 
-from my_lidar_graph_slam_v2_tpu.matching.types import (
-    ScanMatchingQuery,
-    ScanMatchingSummary,
-)
-from my_lidar_graph_slam_v2_tpu.metrics.registry import MetricManager
-
 from ..core import pose as P
 from ..matching.correlative import (
     CorrelativeConfig,
@@ -28,6 +22,11 @@ from ..matching.correlative import (
     correlative_core,
 )
 from ..matching.linear_solver import LinearSolverConfig, LinearSolverMetrics
+from ..matching.types import (
+    ScanMatchingQuery,
+    ScanMatchingSummary,
+)
+from ..metrics.registry import MetricManager
 from ..ops import gauss_newton, quant, rasterize
 from ..utils.transfer import fetch, to_device
 

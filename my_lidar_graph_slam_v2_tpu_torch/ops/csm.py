@@ -6,17 +6,18 @@ scores the pose window with one-hot hit images and matmuls on the MXU
 ``sweep_from_hits_at``).  Here the same integer sums are taken straight
 from the per-(theta, beam) endpoint cells::
 
-    S[n, t, o, ch] = sum_b ok[n,t,b] * win[n, ch, hr[n,t,b] + oj[o], hc[n,t,b] + oi[o]]
+    S[n, t, ch, o] = sum_b ok[n,t,b] * win[n, hr[n,t,b] + oj[o], hc[n,t,b] + oi[o], ch]
     out = float32(S) * float32(1/255)
 
-with ``win`` the u8 (prob level, observed * 255) window cut by
-:func:`sweep_input_window`.  On u8 maps the XLA forms compute exactly
-these integers (their accumulation is exact below 2^24), so the scores
-are bit-identical.  One explicit offset list ``off`` (already multiplied
-by the stride) covers the strided coarse grid, the dense fine grid and
-block-pruned offsets alike.
+with ``win`` the u8 window cut by :func:`sweep_input_window`, its two
+channels (prob level, observed * 255) interleaved in one 2-byte cell.  On
+u8 maps the XLA forms compute exactly these integers (their accumulation
+is exact below 2^24), so the scores are bit-identical.  The offsets are
+rectangular tiles: the strided coarse grid and the dense fine grid are one
+tile each, the block-pruned fine sweep is one 5x5 tile per selected block
+(:func:`tile_offsets` spells them out).
 
-:func:`sweep` is the entry point: CPU tensors take :func:`sweep_plain`,
+:func:`sweep` is the entry point: CPU tensors take :func:`sweep_tiles_plain`,
 CUDA tensors launch the hand-written kernel (``ops/csm_cuda.py``).
 
 Branch-and-bound keeps the JAX package's two-step form: it builds the hit
@@ -89,9 +90,10 @@ def beam_cells(
 
 
 def sweep_input_window(prob, observed, r0, c0, x0, y0, *, in_rows, in_cols):
-    """The u8 ``[2, in_rows, in_cols]`` window (prob level, observed * 255)
-    the sweep correlates against: ``win[:, r, c] = map[r0+y0+r,
-    c0+x0+c]`` with zeros outside the raster.
+    """The u8 ``[in_rows, in_cols, 2]`` window the sweep correlates
+    against, channels interleaved (prob level, observed * 255):
+    ``win[r, c, :] = map[r0+y0+r, c0+x0+c]`` with zeros outside the
+    raster.
 
     The window start follows ``jax.lax.dynamic_slice`` into the map padded
     by ``max(in_rows, in_cols)`` on every side: a start that would run off
@@ -114,7 +116,7 @@ def sweep_input_window(prob, observed, r0, c0, x0, y0, *, in_rows, in_cols):
     cs = torch.clamp(cc, 0, W - 1).long()[None, :]
     p = torch.where(inside, prob[rs, cs], 0)
     o = torch.where(inside & observed[rs, cs], 255, 0).to(torch.uint8)
-    return torch.stack([p, o], dim=0)
+    return torch.stack([p, o], dim=-1)
 
 
 def max_hit_multiplicity(hr, hc, ok, *, crop_cols):
@@ -149,26 +151,27 @@ _PLAIN_CHUNK = 1 << 25
 
 
 def sweep_plain(win, hr, hc, ok, off, scale=quant.INV255):
-    """Plain PyTorch form of the sweep: gather ``win`` at ``[hr + oj,
-    hc + oi]`` (masked beams and cells off the window read a zero cell),
-    sum over beams in int32, then one f32 multiply by ``scale``.
+    """Plain PyTorch form of the sweep at explicit offsets: gather ``win``
+    at ``[hr + oj, hc + oi]`` (masked beams and cells off the window read
+    a zero cell), sum over beams in int32, then one f32 multiply by
+    ``scale``.
 
-    Shapes: win u8 ``[N, 2, in_r, in_c]``; hr, hc i32 and ok bool
-    ``[N, T, B]``; off i32 ``[n_off, 2]``.  Returns f32 ``[N, T, 2,
-    n_off]``."""
-    N, _, in_r, in_c = win.shape
+    Shapes: win u8 ``[N, in_r, in_c, 2]``; hr, hc i32 and ok bool
+    ``[N, T, B]``; off i32 ``[N, n_off, 2]``, per candidate.  Returns f32
+    ``[N, T, 2, n_off]``."""
+    N, in_r, in_c, _ = win.shape
     T, B = hr.shape[1], hr.shape[2]
     L = in_r * in_c
     flat = torch.cat(
-        [win.reshape(N, 2, L).to(torch.int32),
+        [win.reshape(N, L, 2).transpose(1, 2).to(torch.int32),
          torch.zeros((N, 2, 1), dtype=torch.int32, device=win.device)],
         dim=-1,
     )
     step = max(1, _PLAIN_CHUNK // (N * T * B * 2))
     parts = []
-    for o0 in range(0, off.shape[0], step):
-        oj = off[o0:o0 + step, 0].view(1, 1, -1, 1)
-        oi = off[o0:o0 + step, 1].view(1, 1, -1, 1)
+    for o0 in range(0, off.shape[1], step):
+        oj = off[:, o0:o0 + step, 0, None, None].transpose(1, 2)  # [., 1, o, 1]
+        oi = off[:, o0:o0 + step, 1, None, None].transpose(1, 2)
         r = hr[:, :, None, :] + oj  # [N, T, o, B]
         c = hc[:, :, None, :] + oi
         inb = ok[:, :, None, :] & (r >= 0) & (r < in_r) & (c >= 0) & (c < in_c)
@@ -179,15 +182,34 @@ def sweep_plain(win, hr, hc, ok, off, scale=quant.INV255):
     return S.to(torch.float32) * float(scale)
 
 
-def sweep(win, hr, hc, ok, off):
-    """The CSM sweep, f32 ``[N, T, 2, n_off]`` (scores, known).  CPU
-    tensors take :func:`sweep_plain`; anything else goes to the kernel's
-    wrapper, which launches on CUDA tensors and raises on anything it
-    does not take."""
+def tile_offsets(origins, *, tile_h, tile_w, stride):
+    """The explicit offsets of tiles: i32 ``[N, K * tile_h * tile_w, 2]``,
+    offset ``(k * tile_h + j) * tile_w + i`` at ``origins[n, k] + (j, i) *
+    stride``."""
+    grid = grid_offsets(tile_h, tile_w, stride, origins.device)
+    return (origins[:, :, None, :] + grid).reshape(origins.shape[0], -1, 2)
+
+
+def sweep_tiles_plain(win, hr, hc, ok, origins, *, tile_h, tile_w, stride,
+                      scale=quant.INV255):
+    """Plain PyTorch form of the tile sweep: :func:`sweep_plain` at the
+    tiles' explicit offsets (:func:`tile_offsets`)."""
+    off = tile_offsets(origins, tile_h=tile_h, tile_w=tile_w, stride=stride)
+    return sweep_plain(win, hr, hc, ok, off, scale=scale)
+
+
+def sweep(win, hr, hc, ok, origins, *, tile_h, tile_w, stride):
+    """The CSM sweep over tiles of offsets, f32 ``[N, T, 2, K * tile_h *
+    tile_w]`` (scores, known): win u8 ``[N, in_r, in_c, 2]``, beams ``[N,
+    T, B]``, tile origins i32 ``[N, K, 2]`` (see ``ops/csm_cuda.py``).
+    CPU tensors take :func:`sweep_tiles_plain`; anything else goes to the
+    kernel's wrapper, which launches on CUDA tensors and raises on
+    anything it does not take."""
+    kw = dict(tile_h=tile_h, tile_w=tile_w, stride=stride)
     if win.device.type == "cpu":
-        csm_cuda.check_sweep_args(win, hr, hc, ok, off)
-        return sweep_plain(win, hr, hc, ok, off)
-    return csm_cuda.csm_sweep(win, hr, hc, ok, off)
+        csm_cuda.check_sweep_args(win, hr, hc, ok, origins, **kw)
+        return sweep_tiles_plain(win, hr, hc, ok, origins, **kw)
+    return csm_cuda.csm_sweep(win, hr, hc, ok, origins, **kw)
 
 
 def hit_images_plain(rows, cols, *, crop_rows, crop_cols):
@@ -263,7 +285,8 @@ def sweep_from_hits(hit_img, r0, c0, prob, observed, x0, y0, *, nx, ny,
     in_cols = CC + (nx - 1) * stride
     inp = sweep_input_window(prob, observed, r0, c0, x0, y0,
                              in_rows=in_rows, in_cols=in_cols)
-    views = inp.to(torch.float32).unfold(1, CR, stride).unfold(2, CC, stride)
+    views = inp.permute(2, 0, 1).to(torch.float32)
+    views = views.unfold(1, CR, stride).unfold(2, CC, stride)
     hit_t = hit_img.reshape(T, CR * CC).t()
     off = grid_offsets(ny, nx, 1, inp.device).long()
     n_off = ny * nx

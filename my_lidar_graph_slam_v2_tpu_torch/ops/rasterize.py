@@ -24,8 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from my_lidar_graph_slam_v2_tpu.grid import values as gv
-
+from ..grid import values as gv
 from ..utils.transfer import f32
 
 DEFAULT_SAMPLES_PER_BEAM = 768

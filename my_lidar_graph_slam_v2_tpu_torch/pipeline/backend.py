@@ -12,7 +12,7 @@ from __future__ import annotations
 import time
 from typing import Optional
 
-from my_lidar_graph_slam_v2_tpu.metrics.registry import MetricManager
+from ..metrics.registry import MetricManager
 
 
 class LidarGraphSlamBackend:

@@ -12,8 +12,6 @@ from typing import Optional
 
 import torch
 
-from my_lidar_graph_slam_v2_tpu.metrics.registry import MetricManager
-
 from ..graph.optimizer import OptimizerConfig, PoseGraphOptimizer
 from ..grid.builder import GridMapBuilder, GridMapBuilderConfig
 from ..loop.detector import LoopDetectorConfig, LoopDetectorCorrelative
@@ -21,6 +19,7 @@ from ..loop.searcher import LoopSearcherConfig, LoopSearcherNearest
 from ..matching.branch_bound import BranchBoundConfig, ScanMatcherBranchBound
 from ..matching.correlative import CorrelativeConfig, ScanMatcherCorrelative
 from ..matching.linear_solver import LinearSolverConfig, ScanMatcherLinearSolver
+from ..metrics.registry import MetricManager
 from ..models.fused_matcher import FusedCorrelativeGNMatcher
 from ..sensor.filters import ScanAccumulator, ScanInterpolator, ScanOutlierFilter
 from .backend import LidarGraphSlamBackend

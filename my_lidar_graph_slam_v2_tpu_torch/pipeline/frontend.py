@@ -16,21 +16,20 @@ from typing import Optional
 import numpy as np
 import torch
 
-from my_lidar_graph_slam_v2_tpu.matching.types import (
+from ..core import pose as P
+from ..grid.builder import pad_scan
+from ..matching.types import (
     ScanArrays,
     ScanMatchingQuery,
 )
-from my_lidar_graph_slam_v2_tpu.metrics.registry import MetricManager
-from my_lidar_graph_slam_v2_tpu.sensor.data import ScanData
-from my_lidar_graph_slam_v2_tpu.utils.memory import physical_memory_usage
-
-from ..core import pose as P
-from ..grid.builder import pad_scan
+from ..metrics.registry import MetricManager
+from ..sensor.data import ScanData
 from ..sensor.filters import (
     ScanAccumulator,
     ScanInterpolator,
     ScanOutlierFilter,
 )
+from ..utils.memory import physical_memory_usage
 from ..utils.transfer import to_device
 
 

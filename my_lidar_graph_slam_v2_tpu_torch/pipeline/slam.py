@@ -21,17 +21,16 @@ from typing import Optional
 
 import numpy as np
 
-from my_lidar_graph_slam_v2_tpu.graph.pose_graph import (
+from ..core import pose as P
+from ..graph.pose_graph import (
     CONSTRAINT_LOOP,
     EDGE_INTER,
     PoseGraph,
     PoseGraphEdge,
 )
-from my_lidar_graph_slam_v2_tpu.metrics.registry import MetricManager
-from my_lidar_graph_slam_v2_tpu.sensor.data import ScanData
-
-from ..core import pose as P
 from ..grid.builder import GridMapBuilder
+from ..metrics.registry import MetricManager
+from ..sensor.data import ScanData
 
 
 class LidarGraphSlam:

@@ -9,8 +9,6 @@ from __future__ import annotations
 
 import numpy as np
 
-from my_lidar_graph_slam_v2_tpu.matching.types import MapRaster
-
 from .graph.loss import LossFunction
 from .graph.optimizer import OptimizerConfig
 from .grid.builder import GridMapBuilderConfig, LocalMap
@@ -18,6 +16,7 @@ from .matching.branch_bound import BranchBoundConfig
 from .matching.correlative import CorrelativeConfig
 from .matching.cost import CostConfig
 from .matching.linear_solver import LinearSolverConfig
+from .matching.types import MapRaster, ScanArrays
 from .pipeline.frontend import FrontendConfig
 from .utils.transfer import to_device
 
@@ -64,6 +63,18 @@ def map_raster(prob, observed, offset_xy, resolution, device) -> MapRaster:
         to_device(observed, device, bool),
         float(resolution),
         np.asarray(offset_xy, np.float64),
+    )
+
+
+def scan_arrays(ranges, angles, mask, device, *, rel_sensor_pose, num_valid,
+                max_range=0.0) -> ScanArrays:
+    """A port scan from NumPy beams: ``ranges``, ``angles`` f32 and
+    ``mask`` bool ``[B]``, with the host-side metadata."""
+    return ScanArrays(
+        to_device(ranges, device, np.float32),
+        to_device(angles, device, np.float32),
+        to_device(mask, device, bool),
+        np.asarray(rel_sensor_pose), int(num_valid), float(max_range),
     )
 
 

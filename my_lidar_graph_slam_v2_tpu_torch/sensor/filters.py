@@ -18,7 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..core import pose as P
-from my_lidar_graph_slam_v2_tpu.sensor.data import ScanData
+from .data import ScanData
 
 
 @dataclass

@@ -45,7 +45,9 @@ from my_lidar_graph_slam_v2_tpu.matching.linear_solver import (
 from my_lidar_graph_slam_v2_tpu.matching.linear_solver import (
     ScanMatcherLinearSolver as JScanMatcherLinearSolver,
 )
-from my_lidar_graph_slam_v2_tpu.metrics.registry import MetricManager
+from my_lidar_graph_slam_v2_tpu.metrics.registry import (
+    MetricManager as JMetricManager,
+)
 from my_lidar_graph_slam_v2_tpu.pipeline import factory as jfactory
 from my_lidar_graph_slam_v2_tpu.pipeline.backend import (
     LidarGraphSlamBackend as JBackend,
@@ -68,6 +70,7 @@ from my_lidar_graph_slam_v2_tpu_torch.matching.linear_solver import (
     LinearSolverConfig,
     ScanMatcherLinearSolver,
 )
+from my_lidar_graph_slam_v2_tpu_torch.metrics.registry import MetricManager
 from my_lidar_graph_slam_v2_tpu_torch.ops import csm_cuda, hit_images_cuda
 from my_lidar_graph_slam_v2_tpu_torch.pipeline import factory
 from my_lidar_graph_slam_v2_tpu_torch.pipeline.backend import LidarGraphSlamBackend
@@ -196,7 +199,7 @@ def test_map_cache_equals_reference():
     """Same u8 rasters, offsets, LRU order and counters as the JAX cache;
     a compacted map hands its u8 raster over as is; a version bump is a
     miss; an entry's coarse dict persists across hits."""
-    jc = JCache(0.05, max_entries=2, metrics=MetricManager())
+    jc = JCache(0.05, max_entries=2, metrics=JMetricManager())
     pc = DeviceMapCache(0.05, max_entries=2, metrics=MetricManager())
     jmaps, pmaps = [], []
     for i in range(3):

@@ -30,6 +30,9 @@ from my_lidar_graph_slam_v2_tpu.ops import pool as jpool
 from my_lidar_graph_slam_v2_tpu.ops import quant as jquant
 from my_lidar_graph_slam_v2_tpu_torch import reference
 from my_lidar_graph_slam_v2_tpu_torch.matching import branch_bound
+from my_lidar_graph_slam_v2_tpu_torch.matching.types import (
+    ScanMatchingQuery as PScanMatchingQuery,
+)
 from my_lidar_graph_slam_v2_tpu_torch.ops import csm, pool
 
 from tests.test_matchers import build_map, make_scan_arrays
@@ -52,9 +55,8 @@ def scene():
                     gm.offset_xy)
     pgm = reference.map_raster(prob_q, obs, gm.offset_xy, gm.resolution, "cpu")
     scan = make_scan_arrays(true_pose)
-    pscan = type(scan)(
-        *(torch.as_tensor(np.array(a)) for a in (scan.ranges, scan.angles,
-                                                   scan.mask)),
+    pscan = reference.scan_arrays(
+        *(np.array(a) for a in (scan.ranges, scan.angles, scan.mask)), "cpu",
         rel_sensor_pose=scan.rel_sensor_pose, num_valid=scan.num_valid,
     )
     return jgm, pgm, scan, pscan, true_pose
@@ -180,7 +182,7 @@ def test_matcher_matches_reference_and_caches_pyramid(scene):
     pgm.coarse.clear()
     ref = jm.optimize_pose(ScanMatchingQuery(jgm, scan, init),
                            score_threshold=0.2, known_rate_threshold=0.1)
-    got = pm.optimize_pose(ScanMatchingQuery(pgm, pscan, init),
+    got = pm.optimize_pose(PScanMatchingQuery(pgm, pscan, init),
                            score_threshold=0.2, known_rate_threshold=0.1)
     assert got.pose_found and ref.pose_found
     np.testing.assert_allclose(got.estimated_pose, ref.estimated_pose,
@@ -188,7 +190,7 @@ def test_matcher_matches_reference_and_caches_pyramid(scene):
     assert got.normalized_score == pytest.approx(ref.normalized_score, abs=0)
     assert list(pgm.coarse) == [("pyr", 3)]
     cached = pgm.coarse[("pyr", 3)]
-    pm.optimize_pose(ScanMatchingQuery(pgm, pscan, init))
+    pm.optimize_pose(PScanMatchingQuery(pgm, pscan, init))
     assert pgm.coarse[("pyr", 3)] is cached
     assert pm.matches == 2
     assert pm.host_fetches == pm.blocks_swept + 2 * pm.matches

@@ -36,9 +36,11 @@ def _t(a):
 
 
 def _port_sweep(win, hr, hc, ok, off, scale=csm.quant.INV255):
+    """The port's plain sweep of one candidate; ``win`` is ``[in_r, in_c,
+    2]`` (channels interleaved)."""
     out = csm.sweep_plain(
-        _t(win)[None], _t(hr)[None], _t(hc)[None], _t(ok)[None], _t(off),
-        scale=scale,
+        _t(win)[None], _t(hr)[None], _t(hc)[None], _t(ok)[None],
+        _t(off)[None], scale=scale,
     )[0].numpy()
     return out[:, 0], out[:, 1]  # [T, n_off]
 
@@ -64,7 +66,8 @@ def test_plain_sweep_equals_int8_sweep(ny, nx, stride):
         hit, jnp.asarray(ok.sum(1).astype(np.float32)), jnp.asarray(win),
         nx=nx, ny=ny, stride=stride,
     )
-    s_p, k_p = _port_sweep(win, hr, hc, ok, csm.grid_offsets(ny, nx, stride, "cpu"))
+    s_p, k_p = _port_sweep(win.transpose(1, 2, 0), hr, hc, ok,
+                           csm.grid_offsets(ny, nx, stride, "cpu"))
     np.testing.assert_array_equal(s_p.reshape(T, ny, nx), np.asarray(s_j))
     np.testing.assert_array_equal(k_p.reshape(T, ny, nx), np.asarray(k_j))
 
@@ -145,8 +148,8 @@ def test_plain_sweep_against_pallas_interpret():
         nx=nx, ny=ny, stride=1, crop_rows=crop, crop_cols=crop,
         interpret=True,
     )
-    s_p, k_p = _port_sweep(win, hr, hc, ok, csm.grid_offsets(ny, nx, 1, "cpu"),
-                           scale=1.0)
+    s_p, k_p = _port_sweep(win.transpose(1, 2, 0), hr, hc, ok,
+                           csm.grid_offsets(ny, nx, 1, "cpu"), scale=1.0)
     np.testing.assert_allclose((s_p / 255).reshape(T, ny, nx), np.asarray(s_j),
                                atol=0.05)
     np.testing.assert_array_equal(k_p.reshape(T, ny, nx),
@@ -225,30 +228,36 @@ def test_wrapper_takes_plain_path_on_cpu():
     rng = np.random.default_rng(80)
     T, B, crop = 6, 40, 24
     hr, hc, valid, _ = _cells(rng, T, B, crop)
-    win = torch.as_tensor(rng.integers(0, 256, (1, 2, crop + 4, crop + 4)).astype(np.uint8))
-    off = csm.grid_offsets(5, 5, 1, "cpu")
-    args = (win, _t(hr)[None], _t(hc)[None], _t(valid)[None], off)
+    win = torch.as_tensor(rng.integers(0, 256, (1, crop + 4, crop + 4, 2)).astype(np.uint8))
+    origins = torch.zeros((1, 1, 2), dtype=torch.int32)
+    args = (win, _t(hr)[None], _t(hc)[None], _t(valid)[None], origins)
+    kw = dict(tile_h=5, tile_w=5, stride=1)
     before = csm_cuda.LAUNCHES
-    out = csm.sweep(*args)
+    out = csm.sweep(*args, **kw)
     assert csm_cuda.LAUNCHES == before
-    assert torch.equal(out, csm.sweep_plain(*args))
+    assert torch.equal(out, csm.sweep_plain(*args[:4], csm.grid_offsets(5, 5, 1, "cpu")[None]))
     with pytest.raises(ValueError):
-        csm_cuda.csm_sweep(*args)  # launches on CUDA tensors only
+        csm_cuda.csm_sweep(*args, **kw)  # launches on CUDA tensors only
     with pytest.raises(ValueError):
-        csm.sweep(win.to(torch.int32), *args[1:])
+        csm.sweep(win.to(torch.int32), *args[1:], **kw)
 
 
 def _bad_args(case):
-    """Sweep arguments broken in one way each; the rest are valid."""
+    """Sweep arguments broken in one way each; the rest are valid.  ``off``
+    in a case's name stands for the tile origins."""
     rng = np.random.default_rng(81)
     hr, hc, valid, _ = _cells(rng, 4, 16, 12)
     args = dict(
-        win=torch.as_tensor(rng.integers(0, 256, (2, 2, 16, 16)).astype(np.uint8)),
+        win=torch.as_tensor(rng.integers(0, 256, (2, 16, 16, 2)).astype(np.uint8)),
         hr=_t(np.stack([hr, hr])), hc=_t(np.stack([hc, hc])),
-        ok=_t(np.stack([valid, valid])), off=csm.grid_offsets(3, 3, 1, "cpu"),
+        ok=_t(np.stack([valid, valid])),
+        origins=torch.zeros((2, 1, 2), dtype=torch.int32),
+        tile_h=3, tile_w=3, stride=1,
     )
     if case == "win one channel":
-        args["win"] = args["win"][:, :1].contiguous()
+        args["win"] = args["win"][..., :1].contiguous()
+    elif case == "win channels first":
+        args["win"] = args["win"].permute(0, 3, 1, 2).contiguous()
     elif case == "win f32":
         args["win"] = args["win"].float()
     elif case == "hr int64":
@@ -260,15 +269,26 @@ def _bad_args(case):
     elif case == "hc shape differs":
         args["hc"] = args["hc"][:, :, :8].contiguous()
     elif case == "off int64":
-        args["off"] = args["off"].long()
+        args["origins"] = args["origins"].long()
     elif case == "off not pairs":
-        args["off"] = args["off"][:, :1].contiguous()
+        args["origins"] = args["origins"][..., :1].contiguous()
+    elif case == "origins batch differs":
+        args["origins"] = args["origins"][:1].contiguous()
+    elif case == "no tiles":
+        args["origins"] = args["origins"][:, :0].contiguous()
+    elif case == "tile height 0":
+        args["tile_h"] = 0
+    elif case == "stride 0":
+        args["stride"] = 0
+    elif case == "tile width float":
+        args["tile_w"] = 3.0
     return args
 
 
 BAD_CASES = ["win one channel", "win f32", "hr int64", "ok uint8",
              "hr batch differs", "hc shape differs", "off int64",
-             "off not pairs"]
+             "off not pairs", "win channels first", "origins batch differs",
+             "no tiles", "tile height 0", "stride 0", "tile width float"]
 
 
 @pytest.mark.parametrize("case", BAD_CASES)
@@ -281,3 +301,83 @@ def test_sweep_and_kernel_wrapper_reject_what_the_kernel_does_not_take(case):
         csm.sweep(**args)
     with pytest.raises(ValueError, match="must be|differ"):
         csm_cuda.csm_sweep(**args)
+
+
+# The tile form of the sweep, on the cases the card's kernel is held to
+# (tests/torch_sweep_cases.py: tiles off the window, beams on its edge, an
+# all-masked theta, 300 beams in one cell, rows not 4-byte aligned).
+from torch_sweep_cases import TILE_CASES, tile_case  # noqa: E402
+
+
+def _brute_sweep(win, hr, hc, ok, off):
+    """NumPy loop form of the sweep at per-candidate offsets ``off [N,
+    n_off, 2]``: independent of the port's gather."""
+    N, in_r, in_c, _ = win.shape
+    S = np.zeros((N, hr.shape[1], 2, off.shape[1]), np.int64)
+    for n in range(N):
+        for o, (oj, oi) in enumerate(off[n]):
+            r, c = hr[n] + oj, hc[n] + oi
+            inb = ok[n] & (r >= 0) & (r < in_r) & (c >= 0) & (c < in_c)
+            vals = win[n, np.clip(r, 0, in_r - 1), np.clip(c, 0, in_c - 1)]
+            S[n, :, :, o] = (vals * inb[..., None]).sum(1)
+    return S.astype(np.float32) * np.float32(1 / 255)
+
+
+@pytest.mark.parametrize("name", TILE_CASES)
+def test_tile_sweep_equals_explicit_offsets_and_brute_force(name):
+    win, hr, hc, ok, origins, (th, tw, stride), _ = tile_case(name)
+    args = [torch.as_tensor(a) for a in (win, hr, hc, ok)]
+    kw = dict(tile_h=th, tile_w=tw, stride=stride)
+    got = csm.sweep(*args, torch.as_tensor(origins), **kw)
+    off = csm.tile_offsets(torch.as_tensor(origins), **kw)
+    assert off.shape == (win.shape[0], origins.shape[1] * th * tw, 2)
+    assert torch.equal(got, csm.sweep_plain(*args, off))
+    np.testing.assert_array_equal(got.numpy(),
+                                  _brute_sweep(win, hr, hc, ok, off.numpy()))
+
+
+# Cases whose offsets all stay inside the window, where the JAX package's
+# explicit-offset sweep (which clips offsets) computes the same sums.
+IN_WINDOW = ["one tile", "block tiles", "strided tile", "masked theta",
+             "300-beam cell", "unaligned rows"]
+
+
+@pytest.mark.parametrize("name", IN_WINDOW)
+def test_tile_sweep_equals_jax_sweeps(name):
+    """The port's tile sweep against ``sweep_from_hits_at`` (bf16 hit
+    images, the window as the map) on every case, and against
+    ``sweep_from_hits_int8`` on the one-tile cases at origin 0 whose hit
+    multiplicity passes the int8 certificate."""
+    win, hr, hc, ok, origins, (th, tw, stride), crop = tile_case(name)
+    kw = dict(tile_h=th, tile_w=tw, stride=stride)
+    got = csm.sweep(*[torch.as_tensor(a) for a in (win, hr, hc, ok, origins)],
+                    **kw).numpy()
+    N, in_r, in_c, _ = win.shape
+    theta_mask = np.ones(hr.shape[1], bool)
+    off = csm.tile_offsets(torch.as_tensor(origins), **kw).numpy()
+    for n in range(N):
+        hit = _hits(hr[n], hc[n], ok[n], theta_mask, crop, jnp.bfloat16)
+        zero = jnp.int32(0)
+        s_j, k_j = jcsm.sweep_from_hits_at(
+            hit, zero, zero, jnp.asarray(win[n, ..., 0]),
+            jnp.asarray(win[n, ..., 1] > 0), zero, zero, jnp.asarray(off[n]),
+            max_j=in_r - crop, max_i=in_c - crop, precision="split",
+        )
+        np.testing.assert_array_equal(got[n, :, 0], np.asarray(s_j))
+        np.testing.assert_array_equal(got[n, :, 1], np.asarray(k_j))
+        one_tile = origins.shape[1] == 1 and not origins.any()
+        mult = csm.max_hit_multiplicity(_t(hr[n]), _t(hc[n]), _t(ok[n]),
+                                        crop_cols=crop)
+        if one_tile and int(mult) <= 127:
+            s_8, k_8 = jcsm.sweep_from_hits_int8(
+                _hits(hr[n], hc[n], ok[n], theta_mask, crop, jnp.int8),
+                jnp.asarray(ok[n].sum(1).astype(np.float32)),
+                jnp.asarray(win[n].transpose(2, 0, 1)), nx=tw, ny=th,
+                stride=stride,
+            )
+            np.testing.assert_array_equal(got[n, :, 0],
+                                          np.asarray(s_8).reshape(-1, th * tw))
+            np.testing.assert_array_equal(got[n, :, 1],
+                                          np.asarray(k_8).reshape(-1, th * tw))
+        else:
+            assert not one_tile or name == "300-beam cell"

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from my_lidar_graph_slam_v2_tpu_torch.ops import csm, csm_cuda, hit_images_cuda
+from torch_sweep_cases import TILE_CASES, tile_case
 
 pytestmark = pytest.mark.cuda
 
@@ -27,8 +28,21 @@ def _inputs(rng, N, T, B, crop, in_r, in_c):
     hr = torch.as_tensor(rng.integers(0, crop, (N, T, B)).astype(np.int32))
     hc = torch.as_tensor(rng.integers(0, crop, (N, T, B)).astype(np.int32))
     ok = torch.as_tensor(rng.uniform(size=(N, T, B)) < 0.9)
-    win = torch.as_tensor(rng.integers(0, 256, (N, 2, in_r, in_c)).astype(np.uint8))
+    win = torch.as_tensor(rng.integers(0, 256, (N, in_r, in_c, 2)).astype(np.uint8))
     return win, hr, hc, ok
+
+
+@pytest.mark.parametrize("name", TILE_CASES)
+def test_tile_kernel_equals_plain(cuda_device, name):
+    win, hr, hc, ok, origins, (th, tw, stride), _ = tile_case(name)
+    args = [torch.as_tensor(a) for a in (win, hr, hc, ok, origins)]
+    kw = dict(tile_h=th, tile_w=tw, stride=stride)
+    ref = csm.sweep_tiles_plain(*args, **kw)
+    before = csm_cuda.LAUNCHES
+    out = csm.sweep(*[a.to(cuda_device) for a in args], **kw)
+    torch.cuda.synchronize(cuda_device)
+    assert csm_cuda.LAUNCHES == before + 1
+    assert torch.equal(out.cpu(), ref)
 
 
 # (N, T, B, crop, ny, nx, stride): coarse and fine frontend sweeps, a
@@ -46,10 +60,13 @@ def test_kernel_equals_plain(cuda_device, shape):
     win, hr, hc, ok = _inputs(rng, N, T, B, crop, in_r, in_c)
     if T == 8:
         hr[:, :, :300], hc[:, :, :300], ok[:, :, :300] = 11, 13, True
-    off = csm.grid_offsets(ny, nx, stride, "cpu")
+    origins = torch.zeros((N, 1, 2), dtype=torch.int32)
+    kw = dict(tile_h=ny, tile_w=nx, stride=stride)
+    off = csm.grid_offsets(ny, nx, stride, "cpu").expand(N, -1, -1)
     ref = csm.sweep_plain(win, hr, hc, ok, off)
     before = csm_cuda.LAUNCHES
-    out = csm.sweep(*[a.to(cuda_device) for a in (win, hr, hc, ok, off)])
+    out = csm.sweep(*[a.to(cuda_device) for a in (win, hr, hc, ok, origins)],
+                    **kw)
     torch.cuda.synchronize(cuda_device)
     assert csm_cuda.LAUNCHES == before + 1
     assert torch.equal(out.cpu(), ref)
@@ -58,24 +75,37 @@ def test_kernel_equals_plain(cuda_device, shape):
 def test_kernel_raises_on_what_it_does_not_take(cuda_device):
     rng = np.random.default_rng(1)
     win, hr, hc, ok = [a.to(cuda_device) for a in _inputs(rng, 1, 4, 64, 32, 36, 36)]
-    off = csm.grid_offsets(5, 5, 1, cuda_device)
+    org = torch.zeros((1, 1, 2), dtype=torch.int32, device=cuda_device)
+    kw = dict(tile_h=5, tile_w=5, stride=1)
+    before = csm_cuda.LAUNCHES
     with pytest.raises(ValueError):
         csm_cuda.csm_sweep(win, hr.transpose(1, 2).contiguous().transpose(1, 2),
-                           hc, ok, off)
+                           hc, ok, org, **kw)
     with pytest.raises(ValueError):
-        csm_cuda.csm_sweep(win, hr.cpu(), hc, ok, off)
+        csm_cuda.csm_sweep(win, hr.cpu(), hc, ok, org, **kw)
     with pytest.raises(ValueError):  # one channel: the kernel reads two
-        csm_cuda.csm_sweep(win[:, :1].contiguous(), hr, hc, ok, off)
+        csm_cuda.csm_sweep(win[..., :1].contiguous(), hr, hc, ok, org, **kw)
     with pytest.raises(ValueError):
-        csm_cuda.csm_sweep(win, hr.long(), hc, ok, off)
+        csm_cuda.csm_sweep(win, hr.long(), hc, ok, org, **kw)
     with pytest.raises(ValueError):
-        csm_cuda.csm_sweep(win.float(), hr, hc, ok, off)
+        csm_cuda.csm_sweep(win.float(), hr, hc, ok, org, **kw)
     with pytest.raises(ValueError):
-        csm_cuda.csm_sweep(win, hr, hc, ok.to(torch.uint8), off)
+        csm_cuda.csm_sweep(win, hr, hc, ok.to(torch.uint8), org, **kw)
     with pytest.raises(ValueError):  # hr's batch differs from win's
-        csm_cuda.csm_sweep(win, torch.cat([hr, hr]), hc, ok, off)
+        csm_cuda.csm_sweep(win, torch.cat([hr, hr]), hc, ok, org, **kw)
     with pytest.raises(ValueError):
-        csm_cuda.csm_sweep(win, hr, hc, ok, off.long())
+        csm_cuda.csm_sweep(win, hr, hc, ok, org.long(), **kw)
+    with pytest.raises(ValueError):  # read in aligned 8-byte words
+        shifted = win.reshape(-1)[2:2 + 2 * 35 * 36].view(1, 35, 36, 2)
+        csm_cuda.csm_sweep(shifted, hr, hc, ok, org, **kw)
+    for bad in (dict(tile_h=0), dict(tile_w=-1), dict(stride=0),
+                dict(tile_w=5.0)):
+        with pytest.raises(ValueError):
+            csm_cuda.csm_sweep(win, hr, hc, ok, org, **{**kw, **bad})
+    for bad_org in (org[:, :0], org[..., :1], org.repeat(2, 1, 1)):
+        with pytest.raises(ValueError):
+            csm_cuda.csm_sweep(win, hr, hc, ok, bad_org.contiguous(), **kw)
+    assert csm_cuda.LAUNCHES == before
 
 
 # (T, B, crop_rows, crop_cols, pile): branch-and-bound's shape, the

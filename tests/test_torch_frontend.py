@@ -9,8 +9,10 @@ import pytest
 jax = pytest.importorskip("jax")
 
 from my_lidar_graph_slam_v2_tpu.datasets import synthetic as jsyn
-from my_lidar_graph_slam_v2_tpu.matching.types import ScanArrays, ScanMatchingQuery
-from my_lidar_graph_slam_v2_tpu.metrics.registry import MetricManager
+from my_lidar_graph_slam_v2_tpu.matching.types import ScanMatchingQuery
+from my_lidar_graph_slam_v2_tpu.metrics.registry import (
+    MetricManager as JMetricManager,
+)
 from my_lidar_graph_slam_v2_tpu.models.fused_matcher import (
     FusedCorrelativeGNMatcher as JFused,
 )
@@ -19,11 +21,14 @@ from my_lidar_graph_slam_v2_tpu.pipeline.factory import (
 )
 from my_lidar_graph_slam_v2_tpu_torch import reference
 from my_lidar_graph_slam_v2_tpu_torch.datasets import synthetic as psyn
+from my_lidar_graph_slam_v2_tpu_torch.matching.types import (
+    ScanMatchingQuery as PScanMatchingQuery,
+)
+from my_lidar_graph_slam_v2_tpu_torch.metrics.registry import MetricManager
 from my_lidar_graph_slam_v2_tpu_torch.models.fused_matcher import (
     FusedCorrelativeGNMatcher as PFused,
 )
 from my_lidar_graph_slam_v2_tpu_torch.pipeline.factory import create_default_slam
-from my_lidar_graph_slam_v2_tpu_torch.utils.transfer import to_device
 
 SIZES = dict(map_rows=384, map_cols=384, samples_per_beam=256,
              usable_range_max=8.0, n_theta_max=64, crop=256)
@@ -53,15 +58,16 @@ def test_degeneration_and_odometry_fusion():
     """Drives ``_check_degeneration`` and ``_fuse_odometry`` end to end
     (``fuse_odometry_covariance=True``): both packages flag the same
     keyframes as degenerate and fuse them the same way."""
-    degen = MetricManager.instance().counter("Frontend.DegenerationCount")
+    name = "Frontend.DegenerationCount"
+    jdegen = JMetricManager.instance().counter(name)
+    pdegen = MetricManager.instance().counter(name)
     overrides = dict(frontend_overrides=dict(fuse_odometry_covariance=True))
-    v0 = degen.value
+    j0, p0 = jdegen.value, pdegen.value
     j_est = _drive(jax_create_default_slam(**SIZES, **overrides),
                    _corridor(jsyn))
-    j_degen = degen.value - v0
     p_est = _drive(create_default_slam(device="cpu", **SIZES, **overrides),
                    _corridor(psyn))
-    p_degen = degen.value - v0 - j_degen
+    j_degen, p_degen = jdegen.value - j0, pdegen.value - p0
     assert j_degen > 0 and p_degen == j_degen
     assert p_est.shape == j_est.shape
     np.testing.assert_allclose(p_est, j_est, atol=POSE_TOL)
@@ -114,10 +120,10 @@ def test_fused_matcher_on_latest_raster(office_runs):
                                    jraster.resolution, "cpu")
     node = jslam.pose_graph.scan_nodes[-1]
     scan = jslam.frontend._scan_arrays(node.scan_data)
-    pscan = ScanArrays(*(to_device(np.asarray(a), "cpu")
-                         for a in (scan.ranges, scan.angles, scan.mask)),
-                       rel_sensor_pose=scan.rel_sensor_pose,
-                       num_valid=scan.num_valid, max_range=scan.max_range)
+    pscan = reference.scan_arrays(
+        *(np.asarray(a) for a in (scan.ranges, scan.angles, scan.mask)),
+        "cpu", rel_sensor_pose=scan.rel_sensor_pose,
+        num_valid=scan.num_valid, max_range=scan.max_range)
     init = node.global_pose - jslam.builder.latest_map_pose
     init = init + np.array([0.04, -0.03, 0.03])
     js = JFused(jm.ccfg, jm.lcfg, name="TorchParity.FJ").optimize_pose(
@@ -125,7 +131,7 @@ def test_fused_matcher_on_latest_raster(office_runs):
     ps = PFused(reference.correlative_config(dataclasses.asdict(jm.ccfg)),
                 reference.linear_solver_config(dataclasses.asdict(jm.lcfg)),
                 "cpu", name="TorchParity.FP").optimize_pose(
-        ScanMatchingQuery(praster, pscan, init))
+        PScanMatchingQuery(praster, pscan, init))
     assert js.pose_found and ps.pose_found
     np.testing.assert_allclose(ps.estimated_pose, js.estimated_pose, atol=1e-4)
     np.testing.assert_allclose(ps.covariance, js.covariance, rtol=1e-3,

@@ -28,7 +28,9 @@ from my_lidar_graph_slam_v2_tpu.matching.types import (
     ScanArrays,
     ScanMatchingQuery,
 )
-from my_lidar_graph_slam_v2_tpu.metrics.registry import MetricManager
+from my_lidar_graph_slam_v2_tpu.metrics.registry import (
+    MetricManager as JMetricManager,
+)
 from my_lidar_graph_slam_v2_tpu.models import fused_matcher as jfm
 from my_lidar_graph_slam_v2_tpu.ops import quant as jquant
 from my_lidar_graph_slam_v2_tpu.pipeline.factory import create_default_slam
@@ -36,6 +38,12 @@ from my_lidar_graph_slam_v2_tpu_torch import reference
 from my_lidar_graph_slam_v2_tpu_torch.core import pose as P
 from my_lidar_graph_slam_v2_tpu_torch.matching import correlative as pcor
 from my_lidar_graph_slam_v2_tpu_torch.matching import linear_solver as plin
+from my_lidar_graph_slam_v2_tpu_torch.matching.types import (
+    ScanMatchingQuery as PScanMatchingQuery,
+)
+from my_lidar_graph_slam_v2_tpu_torch.metrics.registry import (
+    MetricManager as PMetricManager,
+)
 from my_lidar_graph_slam_v2_tpu_torch.models import fused_matcher as pfm
 from my_lidar_graph_slam_v2_tpu_torch.utils.transfer import fetch, to_device
 
@@ -143,7 +151,6 @@ def test_exact_flag_and_dense_fallback(case):
     j, p = _run_both(case, case["ccfg"], ranges=ranges, angles=angles)
     assert j[-1] == 0.0 and p[-1] == 0.0
 
-    mm = MetricManager.instance()
     lcfg = case["lcfg"]
     jm = jfm.FusedCorrelativeGNMatcher(case["ccfg"], lcfg, name="TorchParity.J")
     pm = pfm.FusedCorrelativeGNMatcher(
@@ -163,11 +170,11 @@ def test_exact_flag_and_dense_fallback(case):
     js = jm.optimize_pose_deltas(jfold, ScanArrays(
         jnp.asarray(ranges), jnp.asarray(angles), jnp.asarray(case["mask"]),
         **meta), case["init"])
-    ps = pm.optimize_pose_deltas(pfold, ScanArrays(
-        to_device(ranges, "cpu"), to_device(angles, "cpu"),
-        to_device(case["mask"], "cpu"), **meta), case["init"])
-    assert mm.counter("TorchParity.J.DenseFallbacks").value == 1
-    assert mm.counter("TorchParity.P.DenseFallbacks").value == 1
+    ps = pm.optimize_pose_deltas(pfold, reference.scan_arrays(
+        ranges, angles, case["mask"], "cpu", **meta), case["init"])
+    jcount = JMetricManager.instance().counter("TorchParity.J.DenseFallbacks")
+    pcount = PMetricManager.instance().counter("TorchParity.P.DenseFallbacks")
+    assert jcount.value == 1 and pcount.value == 1
     assert pm.host_fetches == 2
     np.testing.assert_allclose(ps.estimated_pose, js.estimated_pose, atol=1e-4)
     assert ps.pose_found == js.pose_found
@@ -190,16 +197,15 @@ def test_two_stage_matchers_on_a_raster():
     j_map = MapRaster(jnp.asarray(prob), jnp.asarray(obs), gm.resolution,
                       gm.offset_xy)
     p_map = reference.map_raster(prob, obs, gm.offset_xy, gm.resolution, "cpu")
-    p_scan = ScanArrays(*(to_device(np.asarray(a), "cpu")
-                          for a in (scan.ranges, scan.angles, scan.mask)),
-                        rel_sensor_pose=scan.rel_sensor_pose,
-                        num_valid=scan.num_valid)
+    p_scan = reference.scan_arrays(
+        *(np.asarray(a) for a in (scan.ranges, scan.angles, scan.mask)),
+        "cpu", rel_sensor_pose=scan.rel_sensor_pose, num_valid=scan.num_valid)
 
     js = ScanMatcherCorrelative(jcfg, "TorchParity.JC").optimize_pose(
         ScanMatchingQuery(j_map, scan, init))
     ps = pcor.ScanMatcherCorrelative(
         reference.correlative_config(dataclasses.asdict(jcfg)), "cpu",
-        "TorchParity.PC").optimize_pose(ScanMatchingQuery(p_map, p_scan, init))
+        "TorchParity.PC").optimize_pose(PScanMatchingQuery(p_map, p_scan, init))
     assert js.pose_found and ps.pose_found
     np.testing.assert_allclose(ps.estimated_pose, js.estimated_pose, atol=1e-4)
     n = scan.num_valid
@@ -212,7 +218,7 @@ def test_two_stage_matchers_on_a_raster():
     pf = plin.ScanMatcherLinearSolver(
         reference.linear_solver_config(dataclasses.asdict(lcfg)), "cpu",
         "TorchParity.PL").optimize_pose(
-            ScanMatchingQuery(p_map, p_scan, ps.estimated_pose))
+            PScanMatchingQuery(p_map, p_scan, ps.estimated_pose))
     np.testing.assert_allclose(pf.estimated_pose, jf.estimated_pose, atol=1e-4)
     np.testing.assert_allclose(pf.covariance, jf.covariance, rtol=1e-3,
                                atol=1e-3 * np.abs(jf.covariance).max())

@@ -1,22 +1,45 @@
-"""The port runs without JAX: a fresh interpreter with JAX import blocked
-imports the port, runs a small frontend through the factory with the
-branch-and-bound loop backend, one branch-and-bound loop match and one
-pose-graph solve, and ends with no ``jax`` module loaded."""
+"""The port runs without JAX and without the JAX package: a fresh
+interpreter with both imports blocked imports the port, runs a small
+frontend through the factory with the branch-and-bound loop backend, one
+branch-and-bound loop match and one pose-graph solve, and ends with
+neither loaded; and no source of the port, nor its scripts, has an import
+statement for either."""
+import ast
 import os
 import subprocess
 import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+JAX_PACKAGE = "my_lidar_graph_slam_v2_tpu"
+
+
+def _blocked(name):
+    """jax, jaxlib and the JAX package (not the port, whose name only
+    extends it with ``_torch``)."""
+    return (name in ("jax", "jaxlib", JAX_PACKAGE)
+            or name.startswith(("jax.", "jaxlib.", JAX_PACKAGE + ".")))
+
 
 SCRIPT = r"""
 import importlib.abc
 import sys
 
-for name in [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))]:
+JAX_PACKAGE = "my_lidar_graph_slam_v2_tpu"
+
+
+def _blocked(name):
+    return (name in ("jax", "jaxlib", JAX_PACKAGE)
+            or name.startswith(("jax.", "jaxlib.", JAX_PACKAGE + ".")))
+
+
+for name in [m for m in sys.modules if _blocked(m)]:
     del sys.modules[name]
 
 
 class _BlockJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+        if _blocked(name):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -72,7 +95,7 @@ snap = slam.get_pose_graph_for_optimization()
 _, _, stats = backend.optimizer.optimize(*snap[2:])
 assert stats["iterations"] >= 1
 create_default_backend(device="cpu", sharded=False)
-assert "jax" not in sys.modules
+assert not [m for m in sys.modules if _blocked(m)]
 print("ok", slam.process_count)
 """
 
@@ -84,3 +107,24 @@ def test_port_imports_and_matches_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+
+
+def test_port_sources_do_not_import_jax_or_the_jax_package():
+    """Every import statement in the port's package and in its scripts,
+    read from the source (an import inside a function counts too)."""
+    files = sorted((ROOT / (JAX_PACKAGE + "_torch")).rglob("*.py"))
+    files += [ROOT / n for n in ("chip_smoke.py", "profile_slice.py",
+                                 "sweep_ab.py")]
+    assert len(files) > 40
+    found = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            found += [f"{f.relative_to(ROOT)}:{node.lineno} {n}"
+                      for n in names if _blocked(n)]
+    assert not found, found
