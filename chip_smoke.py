@@ -14,8 +14,9 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    its plain PyTorch version at every sweep the system runs
    (:func:`kernel_shapes`: the frontend's coarse, fine and dense sweeps,
    the serial correlative loop detector's crop-448 coarse and block
-   sweeps, the same block sweep for a batch of 8, and 300 beams in one
-   cell); the hit-image kernel likewise at branch-and-bound's shape, the
+   sweeps, a block sweep of all 208 thetas for a batch of 8, 300 beams in
+   one cell, and the batched loop detector's coarse and block sweeps for
+   a batch of 8); the hit-image kernel likewise at branch-and-bound's shape, the
    frontend crop and a degenerate shape.  Each kernel's device time comes
    from CUDA-graph replays (:func:`_graph_ms`), beside its bound, the
    plain version's time and one library call's (``F.conv2d`` of the
@@ -41,7 +42,20 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    the same keyframes and loop edges, bitwise-equal poses, at least one
    loop edge, ATE below odometry's; prints its sweep launches and the
    median ms per loop match.
-7. Prints the kernel summary line (every number of it measured or, for
+7. The default backend: the same world through
+   ``create_default_backend()``, the batched correlative detector
+   (``parallel/loop_sharded.py``), on the card (after a warm-up run) and
+   on the CPU: the same keyframes and loop edges, bitwise-equal poses, at
+   least one loop edge, ATE below odometry's, and exactly two sweep
+   launches per backend step with candidates plus two per dense re-run;
+   prints the batch sizes and the median ms per ``detect`` and per
+   backend step beside phase 6's.
+8. The launcher: config #3's world written as a Carmen log, then
+   ``pipeline/launcher.py``'s ``main`` with a settings file and no
+   ``--device`` (so CUDA); the saved pose graph read back has phase 7's
+   keyframe count, a loop edge and ATE below odometry's, and the PNG and
+   metrics JSON parse.
+9. Prints the kernel summary line (every number of it measured or, for
    ``bound_ms``, computed in this run), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -179,10 +193,18 @@ def kernel_shapes():
     correlative loop detector's coarse sweep (crop 448, 11x11 at stride 5)
     and block-pruned fine sweep (top-32 thetas, 10 blocks of 5x5 of the
     11x11-block window); the same block sweep for a batch of 8 candidates
-    (``loop``); and 300 beams of every theta in one cell."""
+    (``loop``); 300 beams of every theta in one cell; and the batched loop
+    detector's two sweeps for a batch of 8 candidates: the coarse sweep
+    (``loop_coarse_batch``, one 11x11 tile at stride 5 each) and the
+    block-pruned fine sweep (``loop_fine_batch``, top-32 thetas, each
+    candidate its own 10 blocks)."""
     rng = np.random.default_rng(1)
-    b = rng.choice(121, 10, replace=False)
-    blocks = np.stack([b // 11 * 5, b % 11 * 5], -1).astype(np.int32)
+
+    def pick_blocks():
+        b = rng.choice(121, 10, replace=False)
+        return np.stack([b // 11 * 5, b % 11 * 5], -1).astype(np.int32)
+
+    blocks = pick_blocks()
     one = np.zeros((1, 1, 2), np.int32)
     shapes = [
         dict(shape="coarse", N=1, T=208, crop=320, win=325, tile=(2, 2, 5),
@@ -199,6 +221,11 @@ def kernel_shapes():
              origins=blocks[None]),
         dict(shape="degenerate", N=1, T=208, crop=320, win=329,
              tile=(10, 10, 1), origins=one),
+        dict(shape="loop_coarse_batch", N=8, T=208, crop=448, win=498,
+             tile=(11, 11, 5), origins=np.zeros((8, 1, 2), np.int32)),
+        dict(shape="loop_fine_batch", N=8, T=32, crop=448, win=502,
+             tile=(5, 5, 1),
+             origins=np.stack([pick_blocks() for _ in range(8)])),
     ]
     for s in shapes:
         s.update(B=512, in_r=s["win"], in_c=s["win"],
@@ -224,27 +251,30 @@ def sweep_inputs(rng, s):
 
 
 def sweep_library_call(win, hr, hc, ok, s):
-    """One PyTorch call for a one-tile sweep of one candidate: ``F.conv2d``
-    of the f32 window (channels as the batch) with the prebuilt hit images
-    as T filters at the tile's stride (cuDNN TF32 off); None for
-    explicit-tile sweeps.  Returns the call and the unscaled scores it
-    gives (``[T, 2, n_off]``), or (None, None)."""
+    """One PyTorch call for a sweep of one tile at the window's origin:
+    ``F.conv2d`` of the f32 windows (the two channels as the batch, the N
+    candidates as the channels) with the prebuilt hit images as T filters
+    per candidate (``groups=N``) at the tile's stride (cuDNN TF32 off);
+    None for sweeps of tile lists, which no one call computes.  Returns the
+    call and the unscaled scores it gives (``[N, T, 2, n_off]``), or (None,
+    None)."""
     import torch.nn.functional as F
 
     from my_lidar_graph_slam_v2_tpu_torch.ops import csm
 
-    if s["N"] != 1 or s["origins"].shape[1] != 1 or s["origins"].any():
+    if s["origins"].shape[1] != 1 or s["origins"].any():
         return None, None
+    N, T = s["N"], s["T"]
     th, tw, stride = s["tile"]
-    hits = csm.hit_images_plain(
-        torch.where(ok[0], hr[0], -1), hc[0],
-        crop_rows=s["crop"], crop_cols=s["crop"])[:, None]
-    x = win[0, :, None].to(torch.float32)
+    hits = torch.cat([csm.hit_images_plain(
+        torch.where(ok[n], hr[n], -1), hc[n],
+        crop_rows=s["crop"], crop_cols=s["crop"]) for n in range(N)])[:, None]
+    x = win.transpose(0, 1).to(torch.float32)
 
     def call():
-        return F.conv2d(x, hits, stride=stride)
+        return F.conv2d(x, hits, stride=stride, groups=N)
 
-    got = call()[:, :, :th, :tw].reshape(2, s["T"], -1).transpose(0, 1)
+    got = call()[:, :, :th, :tw].reshape(2, N, T, -1).permute(1, 2, 0, 3)
     return call, got
 
 
@@ -279,7 +309,7 @@ def check_kernel(device):
             bound_ms=bound_ms, bound_by=bound_by, pct_of_bound=100 * bound_ms / ms,
             library_ms=None if lib is None else _events_ms(lib),
             library_max_abs_err=None if lib is None else float(
-                (lib_out * float(quant.INV255) - got[0]).abs().max()),
+                (lib_out * float(quant.INV255) - got).abs().max()),
         )
         print(f"kernel {json.dumps(row)}", flush=True)
         out.append(row)
@@ -524,11 +554,13 @@ def loop_slam(device, **factory_kw):
     return create_default_slam(device=device, backend=backend, **factory_kw)
 
 
-def correlative_loop_slam(device, **factory_kw):
-    """``create_default_slam`` with ``create_default_backend(sharded=False)``,
-    the port's default backend: the serial correlative loop detector (the
-    fused CSM + GN matcher at 2.5 m x 2.5 m x 0.5 rad, T 208, crop 448),
-    nearest searcher (travel threshold 6 m, as config #3) and the Schur LM,
+def correlative_loop_slam(device, *, sharded=False, **factory_kw):
+    """``create_default_slam`` with ``create_default_backend(sharded=...)``:
+    with ``sharded=False`` the serial correlative loop detector (the fused
+    CSM + GN matcher at 2.5 m x 2.5 m x 0.5 rad, T 208, crop 448), with
+    ``None`` (the default backend) the batched detector, one coarse and one
+    fine sweep launch for all of a backend step's candidates; nearest
+    searcher (travel threshold 6 m, as config #3) and the Schur LM,
     inline."""
     from my_lidar_graph_slam_v2_tpu_torch.pipeline.factory import (
         create_default_backend,
@@ -536,9 +568,13 @@ def correlative_loop_slam(device, **factory_kw):
     )
 
     backend = create_default_backend(
-        device=device, sharded=False,
+        device=device, sharded=sharded,
         searcher_overrides=dict(travel_dist_threshold=6.0))
     return create_default_slam(device=device, backend=backend, **factory_kw)
+
+
+def default_loop_slam(device, **factory_kw):
+    return correlative_loop_slam(device, sharded=None, **factory_kw)
 
 
 class StageTimer:
@@ -625,11 +661,12 @@ def _loop_stages():
 
 def run_loop_slice(device, seq, *, stages=(), make_slam=loop_slam, count=None,
                    **factory_kw):
-    """Drive a loop slice (``make_slam``: :func:`loop_slam` or
-    :func:`correlative_loop_slam`) over ``seq`` on ``device``; returns the
-    trajectory, loop edges, ground truth at keyframes, the loop matcher
-    and the times of ``stages`` (see :func:`_loop_stages`; a callable
-    gets the slam object and returns them)."""
+    """Drive a loop slice (``make_slam``: :func:`loop_slam`,
+    :func:`correlative_loop_slam` or :func:`default_loop_slam`) over
+    ``seq`` on ``device``; returns the trajectory, loop edges, ground truth
+    at keyframes, the loop matcher (the batched detector itself, which has
+    none) and the times of ``stages`` (see :func:`_loop_stages`; a
+    callable gets the slam object and returns them)."""
     device = torch.device(device)
     slam = make_slam(device, **factory_kw)
     if callable(stages):
@@ -645,7 +682,8 @@ def run_loop_slice(device, seq, *, stages=(), make_slam=loop_slam, count=None,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
-    matcher = slam.backend.loop_detector.scan_matcher
+    detector = slam.backend.loop_detector
+    matcher = getattr(detector, "scan_matcher", detector)
     return dict(
         est=slam.get_trajectory(), gt=np.asarray(gt), wall=wall,
         loops=[(e.local_map_node_id, e.scan_node_id)
@@ -824,6 +862,212 @@ def check_correlative_loop_slice(device):
     return stats
 
 
+def _logged_detects(calls):
+    """A ``stages`` hook for :func:`run_loop_slice` that records, per call
+    of the batched detector's ``detect``, the batch size, the sweep
+    launches and dense re-runs it made and its host ms (the result fetch
+    synchronizes, so nothing is fenced); the backend step is timed as a
+    stage."""
+    from my_lidar_graph_slam_v2_tpu_torch.ops import csm_cuda
+
+    def stages(slam):
+        det = slam.backend.loop_detector
+        detect = det.detect
+
+        def logged(queries):
+            n0, r0 = csm_cuda.LAUNCHES, det.dense_reruns
+            t = time.perf_counter()
+            out = detect(queries)
+            calls.append(dict(n=len(queries),
+                              ms=(time.perf_counter() - t) * 1e3,
+                              launches=csm_cuda.LAUNCHES - n0,
+                              reruns=det.dense_reruns - r0))
+            return out
+
+        det.detect = logged
+        return [(slam.backend, "run_step", "backend step", False)]
+
+    return stages
+
+
+def check_batched_loop_slice(device, serial):
+    """Phase 7: the port's default backend, ``create_default_backend()``
+    (the batched correlative detector), on config #3's world, on the card
+    and on the CPU.
+
+    A warm-up run on the card first; then the timed run, the launch count
+    set to 0 just before it and read just after, each ``detect`` and each
+    backend step timed by host clock, nothing fenced.  Requires the same
+    keyframes and loop edges on both devices, bitwise-equal poses, at least
+    one loop edge, ATE below odometry's, and exactly two sweep launches
+    per backend step with candidates plus two per dense re-run.  Prints the
+    batch sizes and the medians beside phase 6's (``serial``) from this
+    process."""
+    from collections import Counter
+
+    from my_lidar_graph_slam_v2_tpu_torch.datasets import synthetic
+    from my_lidar_graph_slam_v2_tpu_torch.ops import csm_cuda, hit_images_cuda
+
+    seq = build_loop_sequence()
+    kw = dict(make_slam=default_loop_slam)
+    run_loop_slice(device, seq, stages=_logged_detects([]), **kw)
+    calls = []
+    csm_cuda.LAUNCHES = hit_images_cuda.LAUNCHES = 0
+    gpu = run_loop_slice(device, seq, stages=_logged_detects(calls), **kw)
+    sweep_launches = csm_cuda.LAUNCHES
+    hit_launches = hit_images_cuda.LAUNCHES
+    cpu = run_loop_slice("cpu", seq, **kw)
+
+    n_kf = len(gpu["est"])
+    batches = [c for c in calls if c["n"]]
+    steps = gpu["stages"].get("backend step", (0, [0.0], 0))
+    odom = np.stack([s.odom_pose for s in seq.scans])
+    ate = synthetic.ate_rmse(gpu["est"], gpu["gt"])
+    ate_odom = synthetic.ate_rmse(odom, seq.ground_truth)
+    same_kf = len(cpu["est"]) == n_kf
+    stats = dict(
+        keyframes=n_kf, keyframes_cpu=len(cpu["est"]),
+        loop_edges=len(gpu["loops"]), loop_edges_cpu=len(cpu["loops"]),
+        ate_m=ate, ate_cpu_m=synthetic.ate_rmse(cpu["est"], cpu["gt"]),
+        ate_odom_m=ate_odom,
+        batch_sizes=dict(sorted(Counter(c["n"] for c in batches).items())),
+        candidates=sum(c["n"] for c in batches),
+        dense_reruns=sum(c["reruns"] for c in batches),
+        csm_sweep_launches=sweep_launches, hit_image_launches=hit_launches,
+        detect_sweep_launches=sum(c["launches"] for c in batches),
+        host_fetches=gpu["fetches"],
+        detect_ms_median=statistics.median(c["ms"] for c in batches)
+        if batches else None,
+        backend_steps=steps[0],
+        backend_step_ms_median=statistics.median(steps[1]),
+        serial_backend_step_ms_median=serial["backend_step_ms_median"],
+        serial_loop_match_ms_median=serial["loop_match_ms_median"],
+        wall_s=gpu["wall"], cpu_wall_s=cpu["wall"],
+        poses_bitwise_equal=same_kf and np.array_equal(gpu["est"], cpu["est"]),
+    )
+    print(f"batched_loop_slice {json.dumps(stats)}", flush=True)
+    if not batches or len(gpu["loops"]) < 1:
+        raise AssertionError(
+            f"{len(batches)} batched detects, {len(gpu['loops'])} loop edges")
+    wrong = [c for c in batches if c["launches"] != 2 + 2 * c["reruns"]]
+    if wrong:
+        raise AssertionError(f"detects off two launches per batch: {wrong}")
+    if not same_kf or gpu["loops"] != cpu["loops"]:
+        raise AssertionError(
+            f"cuda and cpu differ: keyframes {n_kf} / {len(cpu['est'])}, "
+            f"loop edges {gpu['loops']} / {cpu['loops']}")
+    if not stats["poses_bitwise_equal"]:
+        d = np.abs(gpu["est"] - cpu["est"])
+        raise AssertionError(
+            f"cuda and cpu poses differ: dxy {d[:, :2].max()}, dtheta "
+            f"{d[:, 2].max()}")
+    if not np.all(np.isfinite(gpu["est"])) or not ate < ate_odom:
+        raise AssertionError(f"ATE {ate} does not beat odometry {ate_odom}")
+    return stats
+
+
+# The launcher's settings in phase 8: config #3's searcher, and both
+# matchers' windows stated rather than left to the loader's defaults.
+LAUNCHER_SETTINGS = {
+    "ScanMatcherRealTimeCorrelative": {
+        "SearchRangeX": 0.25, "SearchRangeY": 0.25, "SearchRangeTheta": 0.5},
+    "LoopSearcherNearest": {"TravelDistThreshold": 6.0},
+    "LoopDetectorRealTimeCorrelative": {
+        "ScanMatcher": {"SearchRangeX": 2.5, "SearchRangeY": 2.5,
+                        "SearchRangeTheta": 0.5}},
+}
+
+
+def _png_shape(path):
+    """(rows, cols) of an 8-bit grey PNG, its image data decompressed to
+    check that it is whole."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path} is not a PNG")
+    w, h = struct.unpack(">II", data[16:24])
+    pos, idat = 8, b""
+    while pos < len(data):
+        n = struct.unpack(">I", data[pos:pos + 4])[0]
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    if len(zlib.decompress(idat)) != h * (w + 1):
+        raise AssertionError(f"{path}: image data of the wrong size")
+    return h, w
+
+
+def check_launcher(device, keyframes):
+    """Phase 8: the user's entry point on the card.  Config #3's world is
+    written as a Carmen log with the port's writer into a temporary
+    directory; ``launcher.main([log, settings, prefix])`` runs with no
+    ``--device``, so it must land on CUDA (its sweep launches are counted).
+    The saved pose graph is read back with the port's ``load_pose_graph``:
+    as many nodes as phase 7's keyframes (the gate reads odometry alone),
+    at least one loop edge, and the saved poses' ATE below odometry's;
+    the map PNG and the metrics JSON must parse."""
+    import tempfile
+    from pathlib import Path
+
+    from my_lidar_graph_slam_v2_tpu_torch.datasets import synthetic
+    from my_lidar_graph_slam_v2_tpu_torch.io.carmen import write_carmen_log
+    from my_lidar_graph_slam_v2_tpu_torch.io.map_saver import load_pose_graph
+    from my_lidar_graph_slam_v2_tpu_torch.ops import csm_cuda, hit_images_cuda
+    from my_lidar_graph_slam_v2_tpu_torch.pipeline import launcher
+
+    seq = build_loop_sequence()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_carmen_log(seq.scans, str(tmp / "config3.log"))
+        (tmp / "settings.json").write_text(json.dumps(LAUNCHER_SETTINGS))
+        prefix = str(tmp / "config3")
+        csm_cuda.LAUNCHES = hit_images_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rc = launcher.main([str(tmp / "config3.log"),
+                            str(tmp / "settings.json"), prefix])
+        wall = time.perf_counter() - t0
+        launches = csm_cuda.LAUNCHES
+        hit_launches = hit_images_cuda.LAUNCHES
+        pg = load_pose_graph(f"{prefix}.posegraph.json")
+        # The saved graph's time stamps say which scans became keyframes.
+        stamps = [n["TimeStamp"] for n in json.loads(
+            Path(f"{prefix}.posegraph.json").read_text())["ScanNodes"]]
+        rows, cols = _png_shape(f"{prefix}.png")
+        meta = json.loads(Path(f"{prefix}.json").read_text())["Map"]
+        metrics = json.loads(Path(f"{prefix}.metric.json").read_text())
+
+    times = np.array([s.time_stamp for s in seq.scans])
+    gt = seq.ground_truth[[int(np.argmin(np.abs(times - t))) for t in stamps]]
+    est = pg.scan_poses()
+    odom = np.stack([s.odom_pose for s in seq.scans])
+    ate = synthetic.ate_rmse(est, gt)
+    ate_odom = synthetic.ate_rmse(odom, seq.ground_truth)
+    stats = dict(
+        rc=rc, wall_s=wall, scans=len(seq.scans), csm_sweep_launches=launches,
+        hit_image_launches=hit_launches,
+        nodes=len(pg.scan_nodes), keyframes_phase7=keyframes,
+        loop_edges=sum(e.is_loop for e in pg.edges), ate_m=ate,
+        ate_odom_m=ate_odom, map_png=[rows, cols],
+        metric_series=len(metrics["ValueSequences"]),
+    )
+    print(f"launcher {json.dumps(stats)}", flush=True)
+    if rc != 0 or launches < 1:
+        raise AssertionError(f"launcher exit {rc}, {launches} sweep launches")
+    if stats["nodes"] != keyframes or stats["loop_edges"] < 1:
+        raise AssertionError(
+            f"{stats['nodes']} nodes (phase 7: {keyframes} keyframes), "
+            f"{stats['loop_edges']} loop edges")
+    if [rows, cols] != [meta["Rows"], meta["Cols"]]:
+        raise AssertionError(f"map PNG {rows}x{cols} against metadata {meta}")
+    if "Frontend.ProcessTime" not in metrics["ValueSequences"]:
+        raise AssertionError("the metrics JSON lacks Frontend.ProcessTime")
+    if not np.all(np.isfinite(est)) or not ate < ate_odom:
+        raise AssertionError(f"ATE {ate} does not beat odometry {ate_odom}")
+    return stats
+
+
 def _kernel_line(rows, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
     """Sums of ``keys`` over ``rows``, ``bound_by`` of the larger bound
     and the share of the bound."""
@@ -861,9 +1105,13 @@ def main() -> int:
     _, frontend_launches = check_slice(device)
     loop = check_loop_slice(device)
     corr = check_correlative_loop_slice(device)
+    batched = check_batched_loop_slice(device, corr)
+    cli = check_launcher(device, batched["keyframes"])
 
     # Top-level times: the frontend's two sweeps of a keyframe (coarse +
     # fine) and branch-and-bound's hit images; every shape is in "shapes".
+    # "launches" is the main path's: create_default_slam with the default
+    # (batched) backend, phase 7.
     frontend = [r for r in shapes if r["shape"] in ("coarse", "fine")]
     bb_shape = [r for r in hit_shapes if r["shape"] == "branch_bound"]
     print(json.dumps({"kernels": [
@@ -872,11 +1120,13 @@ def main() -> int:
             route="cuda",
             source="my_lidar_graph_slam_v2_tpu_torch/csrc/csm_sweep.cu",
             replaces="my_lidar_graph_slam_v2_tpu/ops/csm_pallas.py:86",
-            launches=corr["csm_sweep_launches"],
+            launches=batched["csm_sweep_launches"],
             launches_by_path=dict(
                 frontend=frontend_launches,
                 branch_bound_loop=loop["csm_sweep_launches"],
-                correlative_loop=corr["csm_sweep_launches"]),
+                correlative_loop=corr["csm_sweep_launches"],
+                batched_loop=batched["csm_sweep_launches"],
+                launcher=cli["csm_sweep_launches"]),
             max_abs_err=max(r["max_abs_err"] for r in shapes),
             **_kernel_line(frontend),
             shapes=shapes,
@@ -887,7 +1137,10 @@ def main() -> int:
             source="my_lidar_graph_slam_v2_tpu_torch/csrc/hit_images.cu",
             replaces="my_lidar_graph_slam_v2_tpu/ops/csm_pallas.py:32",
             launches=loop["hit_image_launches"],
-            launches_by_path=dict(branch_bound_loop=loop["hit_image_launches"]),
+            launches_by_path=dict(
+                branch_bound_loop=loop["hit_image_launches"],
+                batched_loop=batched["hit_image_launches"],
+                launcher=cli["hit_image_launches"]),
             max_abs_err=max(r["max_abs_err"] for r in hit_shapes),
             **_kernel_line(bb_shape),
             shapes=hit_shapes,

@@ -38,21 +38,35 @@ class LoopDetectorConfig:
     usable_range_max: float = 20.0
 
 
-def scan_to_arrays(scan, capacity: int, device) -> ScanArrays:
-    """Padded matching arrays on ``device``: all (possibly subsampled)
-    beams valid."""
-    r, a, _ = pad_scan(scan, capacity, 0.0, np.inf)
-    n = min(scan.num_scans, capacity)
-    m = np.zeros(capacity, bool)
-    m[:n] = True
-    return ScanArrays(
-        to_device(r, device),
-        to_device(a, device),
-        to_device(m, device),
-        rel_sensor_pose=np.asarray(scan.relative_sensor_pose, np.float64),
-        num_valid=n,
-        max_range=float(r[:n].max()) if n else 0.0,
+def scan_arrays_batch(scans, capacity: int, device):
+    """Padded matching arrays of ``scans`` (all, possibly subsampled,
+    beams valid), uploaded once: the ``[N, B]`` device tensors (ranges,
+    angles, mask) and one ScanArrays per scan whose beams are their rows."""
+    host = []
+    for scan in scans:
+        r, a, _ = pad_scan(scan, capacity, 0.0, np.inf)
+        n = min(scan.num_scans, capacity)
+        m = np.zeros(capacity, bool)
+        m[:n] = True
+        host.append((r, a, m, n))
+    ranges, angles, mask = (
+        to_device(np.stack([h[k] for h in host]), device) for k in range(3)
     )
+    arrays = [
+        ScanArrays(
+            ranges[i], angles[i], mask[i],
+            rel_sensor_pose=np.asarray(scan.relative_sensor_pose, np.float64),
+            num_valid=n,
+            max_range=float(r[:n].max()) if n else 0.0,
+        )
+        for i, (scan, (r, _, _, n)) in enumerate(zip(scans, host))
+    ]
+    return (ranges, angles, mask), arrays
+
+
+def scan_to_arrays(scan, capacity: int, device) -> ScanArrays:
+    """Padded matching arrays of one scan on ``device``."""
+    return scan_arrays_batch([scan], capacity, device)[1][0]
 
 
 class LoopDetectorEmpty:

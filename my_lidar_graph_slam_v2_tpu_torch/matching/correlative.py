@@ -71,25 +71,50 @@ class CorrelativeConfig:
 
 
 def _top(values, k):
-    """(values, indices) of the k largest, lower index first on ties —
-    the order of ``jax.lax.top_k``."""
-    v, i = torch.sort(values, descending=True, stable=True)
-    return v[:k], i[:k]
+    """(values, indices) of the k largest along the last axis, lower index
+    first on ties — the order of ``jax.lax.top_k``."""
+    v, i = torch.sort(values, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
 
 
-def _at(values, index):
-    """``values[index]`` for a 0-d device index without a host sync
-    (indexing with a 0-d tensor converts it to a Python int)."""
-    return values.index_select(0, index.reshape(1)).squeeze(0)
+def coarse_of(raster: MapRaster, low_resolution: int):
+    """The raster's full sliding-window-max coarse maps, cached on its map
+    cache entry; the serial matchers and the batched loop detector share
+    the slot."""
+    key = ("swmax", low_resolution)
+    if key not in raster.coarse:
+        raster.coarse[key] = (
+            pool.sliding_window_max2d(raster.prob, low_resolution),
+            pool.sliding_window_max2d(raster.observed, low_resolution),
+        )
+    return raster.coarse[key]
 
 
-def correlative_core(cfg: CorrelativeConfig, prob, observed, coarse_prob,
-                     coarse_observed, ranges, angles, mask, sensor_pose,
-                     offset_xy, score_threshold, known_rate_threshold, *,
-                     dense: bool = False):
-    """Port of ``_correlative_core``; returns the same 9-tuple of device
-    tensors (pose, score, known, found, cost / n, cov, n_processed,
-    n_total, exact)."""
+def _pick(values, index):
+    """``values[n, index[n]]`` for each row n, on the device (indexing
+    with a device tensor would go through the host)."""
+    return torch.take_along_dim(values, index[:, None], dim=1)[:, 0]
+
+
+def correlative_core_batch(cfg: CorrelativeConfig, prob, observed,
+                           coarse_prob, coarse_observed, ranges, angles, mask,
+                           sensor_pose, offset_xy, score_threshold,
+                           known_rate_threshold, *, map_index=None,
+                           dense: bool = False):
+    """``_correlative_core`` for N candidates at once (the body of the JAX
+    package's ``vmap``, ``parallel/loop_sharded.py:49-63``): beams ``[N,
+    B]``, map-local sensor poses ``[N, 3]`` and raster offsets ``[N, 2]``;
+    the maps are one raster ``[H, W]`` for all, or the stack of a step's
+    distinct rasters ``[M, H, W]`` with ``map_index`` (i64 ``[N]``).
+    ``coarse_prob`` / ``coarse_observed`` are the full sliding-window-max
+    maps of the same rasters, or None to pool over each crop.
+
+    One coarse and one fine sweep launch serve the whole batch.  Every
+    step is per candidate (its own theta step and window, crop anchor,
+    top-K thetas, top-B blocks and tie-break), and nothing sums across the
+    candidate axis, so each row equals the single-candidate call.  Returns
+    the 9-tuple (pose, score, known, found, cost / n, cov, n_processed,
+    n_total, exact) with a leading ``N`` axis, on the device."""
     if cfg.sweep_backend != "matmul":
         raise NotImplementedError(
             "sweep_backend='gather' is not ported (ROADMAP item 1.7)"
@@ -100,6 +125,7 @@ def correlative_core(cfg: CorrelativeConfig, prob, observed, coarse_prob,
             "'highest' precision only (ROADMAP item 1.4)"
         )
     dev = prob.device
+    N = ranges.shape[0]
     wx, wy = cfg.win_cells
     nbx, nby = cfg.blocks
     LR = cfg.low_resolution
@@ -110,15 +136,16 @@ def correlative_core(cfg: CorrelativeConfig, prob, observed, coarse_prob,
     step_theta, theta0, theta_mask = csm.theta_search_params(
         ranges, mask, cfg.resolution, cfg.range_theta, T
     )
-    n_valid = mask.sum().to(torch.float32)
-    norm = 1.0 / torch.clamp(n_valid, min=1.0)
+    n_valid = mask.sum(dim=-1).to(torch.float32)
+    norm = 1.0 / torch.clamp(n_valid, min=1.0)  # [N]
+    norm4 = norm[:, None, None, None]
     x0, y0 = -wx, -wy
 
     hr, hc, valid, r0, c0 = csm.beam_cells(
         ranges, angles, mask, sensor_pose, theta0, step_theta, theta_mask,
         cfg.resolution, offset_xy, n_theta=T, crop_rows=CR, crop_cols=CC,
-    )
-    ok_tb = valid & theta_mask[:, None]
+    )  # [N, T, B], [N]
+    ok_tb = valid & theta_mask[:, :, None]
     use_int8 = (not dense) and cfg.coarse_int8
     if use_int8:
         int8_ok = csm.max_hit_multiplicity(hr, hc, ok_tb, crop_cols=CC) <= 127
@@ -128,41 +155,43 @@ def correlative_core(cfg: CorrelativeConfig, prob, observed, coarse_prob,
     in_rows, in_cols = CR + (nby - 1) * LR, CC + (nbx - 1) * LR
     if coarse_prob is None:
         seg = csm.sweep_input_window(
-            prob, observed, r0, c0, x0, y0,
+            prob, observed, r0, c0, x0, y0, map_index=map_index,
             in_rows=in_rows + LR - 1, in_cols=in_cols + LR - 1,
         )
-        pooled = pool.sliding_window_max2d(seg.permute(2, 0, 1), LR)
-        coarse_inp = pooled.permute(1, 2, 0)[:in_rows, :in_cols]
+        pooled = pool.sliding_window_max2d(seg.permute(0, 3, 1, 2), LR)
+        coarse_inp = pooled.permute(0, 2, 3, 1)[:, :in_rows, :in_cols]
     else:
         coarse_inp = csm.sweep_input_window(
             coarse_prob, coarse_observed, r0, c0, x0, y0,
-            in_rows=in_rows, in_cols=in_cols,
+            map_index=map_index, in_rows=in_rows, in_cols=in_cols,
         )
-    origin = torch.zeros((1, 1, 2), dtype=torch.int32, device=dev)
+    origin = torch.zeros((N, 1, 2), dtype=torch.int32, device=dev)
     c = csm.sweep(
-        coarse_inp.contiguous()[None], hr[None], hc[None], ok_tb[None],
-        origin, tile_h=nby, tile_w=nbx, stride=LR,
-    )[0]  # [T, 2, nby * nbx]
-    c_scores = c[:, 0].reshape(T, nby, nbx)
-    c_known = c[:, 1].reshape(T, nby, nbx)
+        coarse_inp.contiguous(), hr, hc, ok_tb, origin,
+        tile_h=nby, tile_w=nbx, stride=LR,
+    )  # [N, T, 2, nby * nbx]
+    c_scores = c[:, :, 0].reshape(N, T, nby, nbx)
+    c_known = c[:, :, 1].reshape(N, T, nby, nbx)
 
     # Reference gating (scan_matcher_correlative.cpp:178-189)
     block_ok = (
-        (c_scores * norm > score_threshold)
-        & (c_known * norm > known_rate_threshold)
-        & theta_mask[:, None, None]
+        (c_scores * norm4 > score_threshold)
+        & (c_known * norm4 > known_rate_threshold)
+        & theta_mask[:, :, None, None]
     )
 
     use_topk = (not dense) and 0 < cfg.fine_theta_k < T
     if use_topk:
         K = cfg.fine_theta_k
-        bound = torch.where(block_ok, c_scores, -math.inf).amax(dim=(1, 2))
-        kth, sel_theta = _top(bound, K)
-        kth_bound = kth[K - 1]
-        ok_rows = block_ok[sel_theta]
+        bound = torch.where(block_ok, c_scores, -math.inf).amax(dim=(2, 3))
+        kth, sel_theta = _top(bound, K)  # [N, K]
+        kth_bound = kth[:, K - 1]
+        sel4 = sel_theta[:, :, None, None]
+        ok_rows = torch.take_along_dim(block_ok, sel4, dim=1)
     else:
-        sel_theta = torch.arange(T, device=dev)
+        sel_theta = torch.arange(T, device=dev).expand(N, T)
         ok_rows = block_ok
+    R = ok_rows.shape[1]
 
     n_blocks = nby * nbx
     use_blocks = (not dense) and 0 < cfg.fine_block_b < n_blocks
@@ -170,56 +199,61 @@ def correlative_core(cfg: CorrelativeConfig, prob, observed, coarse_prob,
         # Top-B coarse-block prune: sweep only the offsets of the B blocks
         # with the largest gated coarse bound, one LR x LR tile each.
         Bb = cfg.fine_block_b
-        c_sel = c_scores[sel_theta] if use_topk else c_scores
-        blk_bound = torch.where(ok_rows, c_sel, -math.inf).amax(dim=0)
-        bvals, bidx = _top(blk_bound.reshape(-1), Bb + 1)
-        blk_next_bound = bvals[Bb]
-        bsel = bidx[:Bb]
+        c_sel = (torch.take_along_dim(c_scores, sel4, dim=1) if use_topk
+                 else c_scores)
+        blk_bound = torch.where(ok_rows, c_sel, -math.inf).amax(dim=1)
+        bvals, bidx = _top(blk_bound.reshape(N, -1), Bb + 1)
+        blk_next_bound = bvals[:, Bb]
+        bsel = bidx[:, :Bb]  # [N, Bb]
         origins = torch.stack([bsel // nbx * LR, bsel % nbx * LR], dim=-1)
         tile_h = tile_w = LR
-        elig_f = ok_rows.reshape(ok_rows.shape[0], -1)[:, bsel]
-        elig_f = elig_f.repeat_interleave(LR * LR, dim=1)
+        elig_f = torch.take_along_dim(
+            ok_rows.reshape(N, R, -1), bsel[:, None, :], dim=2)
+        elig_f = elig_f.repeat_interleave(LR * LR, dim=2)
     else:
-        origins = torch.zeros((1, 2), dtype=torch.int64, device=dev)
+        origins = torch.zeros((N, 1, 2), dtype=torch.int64, device=dev)
         tile_h, tile_w = nyf, nxf
-        elig_f = ok_rows.repeat_interleave(LR, dim=1).repeat_interleave(
-            LR, dim=2
-        ).reshape(ok_rows.shape[0], -1)
+        elig_f = ok_rows.repeat_interleave(LR, dim=2).repeat_interleave(
+            LR, dim=3
+        ).reshape(N, R, -1)
     # The sweep's offsets in its output order (tile-major, then j, then i).
-    off = csm.tile_offsets(origins[None], tile_h=tile_h, tile_w=tile_w,
-                           stride=1)[0]
-    offs_y, offs_x = off[:, 0], off[:, 1]
+    off = csm.tile_offsets(origins, tile_h=tile_h, tile_w=tile_w, stride=1)
+    offs_y, offs_x = off[..., 0], off[..., 1]  # [N, n_off]
 
     fine_inp = csm.sweep_input_window(
-        prob, observed, r0, c0, x0, y0,
+        prob, observed, r0, c0, x0, y0, map_index=map_index,
         in_rows=CR + nyf - 1, in_cols=CC + nxf - 1,
     )
     if use_topk:
-        hr_s, hc_s, ok_s = hr[sel_theta], hc[sel_theta], ok_tb[sel_theta]
+        sel3 = sel_theta[:, :, None]
+        hr_s, hc_s, ok_s = (torch.take_along_dim(a, sel3, dim=1)
+                            for a in (hr, hc, ok_tb))
     else:
         hr_s, hc_s, ok_s = hr, hc, ok_tb
     f = csm.sweep(
-        fine_inp[None], hr_s[None], hc_s[None], ok_s[None],
-        origins.to(torch.int32)[None], tile_h=tile_h, tile_w=tile_w, stride=1,
-    )[0]
-    f_scores_f, f_known_f = f[:, 0], f[:, 1]  # [R, n_off]
-    n_off = f_scores_f.shape[1]
+        fine_inp, hr_s, hc_s, ok_s, origins.to(torch.int32),
+        tile_h=tile_h, tile_w=tile_w, stride=1,
+    )  # [N, R, 2, n_off]
+    f_scores_f, f_known_f = f[:, :, 0], f[:, :, 1]
+    n_off = f_scores_f.shape[2]
 
     # Winner with the reference's (theta, x, y) loop-nesting tie-break.
-    flat = torch.where(elig_f, f_scores_f, -math.inf).reshape(-1)
-    best_sum = flat.max()
+    flat = torch.where(elig_f, f_scores_f, -math.inf).reshape(N, -1)
+    best_sum = flat.amax(dim=1)
     order = (
-        (sel_theta[:, None] * nxf + offs_x[None, :]) * nyf + offs_y[None, :]
-    ).reshape(-1)
-    best = torch.where(flat == best_sum, order, np.iinfo(np.int64).max).argmin()
+        (sel_theta[:, :, None] * nxf + offs_x[:, None, :]) * nyf
+        + offs_y[:, None, :]
+    ).reshape(N, -1)
+    best = torch.where(flat == best_sum[:, None], order,
+                       np.iinfo(np.int64).max).argmin(dim=1)
     rt, oi = best // n_off, best % n_off
-    bt = _at(sel_theta, rt)
-    bx = _at(offs_x, oi)
-    by = _at(offs_y, oi)
+    bt = _pick(sel_theta, rt)
+    bx = _pick(offs_x, oi)
+    by = _pick(offs_y, oi)
     best_score = best_sum * norm
-    best_known = _at(f_known_f.reshape(-1), best) * norm
+    best_known = _pick(f_known_f.reshape(N, -1), best) * norm
     pose_found = best_score > score_threshold
-    exact = torch.ones((), dtype=torch.bool, device=dev)
+    exact = torch.ones((N,), dtype=torch.bool, device=dev)
     if use_topk:
         exact = exact & (best_sum >= kth_bound)
     if use_blocks:
@@ -228,26 +262,42 @@ def correlative_core(cfg: CorrelativeConfig, prob, observed, coarse_prob,
         exact = exact & int8_ok
 
     best_sensor_pose = torch.stack([
-        sensor_pose[0] + (bx.to(torch.float32) - wx) * cfg.resolution,
-        sensor_pose[1] + (by.to(torch.float32) - wy) * cfg.resolution,
-        sensor_pose[2] + (theta0 + bt).to(torch.float32) * step_theta,
-    ])
+        sensor_pose[:, 0] + (bx.to(torch.float32) - wx) * cfg.resolution,
+        sensor_pose[:, 1] + (by.to(torch.float32) - wy) * cfg.resolution,
+        sensor_pose[:, 2] + (theta0 + bt).to(torch.float32) * step_theta,
+    ], dim=-1)
 
     ccfg = cfg.cost or CostConfig(covariance_scale=cfg.covariance_scale)
     cost_val = cost_at(
         ccfg, prob, observed, ranges, angles, mask, best_sensor_pose,
-        cfg.resolution, offset_xy,
+        cfg.resolution, offset_xy, map_index,
     )
     cov = covariance_at(
         ccfg, prob, observed, ranges, angles, mask, best_sensor_pose,
-        cfg.resolution, offset_xy,
+        cfg.resolution, offset_xy, map_index,
     )
     # Candidate accounting over the full theta window (parity with the
     # reference's NumOfProcessedNodes / NumOfIgnoredNodes series).
-    n_processed = block_ok.sum() * (LR ** 2)
-    n_total = theta_mask.sum() * (nxf * nyf)
+    n_processed = block_ok.sum(dim=(1, 2, 3)) * (LR ** 2)
+    n_total = theta_mask.sum(dim=1) * (nxf * nyf)
     return (best_sensor_pose, best_score, best_known, pose_found,
             cost_val * norm, cov, n_processed, n_total, exact)
+
+
+def correlative_core(cfg: CorrelativeConfig, prob, observed, coarse_prob,
+                     coarse_observed, ranges, angles, mask, sensor_pose,
+                     offset_xy, score_threshold, known_rate_threshold, *,
+                     dense: bool = False):
+    """Port of ``_correlative_core`` for one candidate: the batched core
+    at N = 1 on one raster ``[H, W]``.  Returns the same 9-tuple of device
+    tensors (pose, score, known, found, cost / n, cov, n_processed,
+    n_total, exact)."""
+    out = correlative_core_batch(
+        cfg, prob, observed, coarse_prob, coarse_observed, ranges[None],
+        angles[None], mask[None], sensor_pose[None], offset_xy[None],
+        score_threshold, known_rate_threshold, dense=dense,
+    )
+    return tuple(o[0] for o in out)
 
 
 class MatcherMetrics:
@@ -280,14 +330,7 @@ class ScanMatcherCorrelative:
         self.host_fetches = 0
 
     def coarse_of(self, grid_map: MapRaster):
-        key = ("swmax", self.cfg.low_resolution)
-        if key not in grid_map.coarse:
-            grid_map.coarse[key] = (
-                pool.sliding_window_max2d(grid_map.prob, self.cfg.low_resolution),
-                pool.sliding_window_max2d(grid_map.observed,
-                                          self.cfg.low_resolution),
-            )
-        return grid_map.coarse[key]
+        return coarse_of(grid_map, self.cfg.low_resolution)
 
     def optimize_pose(self, query: ScanMatchingQuery,
                       score_threshold: float = 0.0,

@@ -41,21 +41,22 @@ def _require_square_error(ccfg: CostConfig):
 
 
 def cost_at(ccfg: CostConfig, prob, observed, ranges, angles, mask,
-            sensor_pose, resolution, offset_xy):
-    """Total cost at a map-local sensor pose."""
+            sensor_pose, resolution, offset_xy, map_index=None):
+    """Total cost at a map-local sensor pose (per candidate for batched
+    beams, see ``ops/gauss_newton.py``)."""
     _require_square_error(ccfg)
     return gauss_newton.cost(
         prob, observed, ranges, angles, mask, sensor_pose, resolution,
-        offset_xy,
+        offset_xy, map_index,
     )
 
 
 def covariance_at(ccfg: CostConfig, prob, observed, ranges, angles, mask,
-                  sensor_pose, resolution, offset_xy):
+                  sensor_pose, resolution, offset_xy, map_index=None):
     """Pose covariance at a map-local sensor pose: scale * H^{-1}
     (``cost_function_square_error.cpp:131-146``)."""
     _require_square_error(ccfg)
     return gauss_newton.covariance(
         prob, observed, ranges, angles, mask, sensor_pose, resolution,
-        offset_xy, ccfg.covariance_scale,
+        offset_xy, ccfg.covariance_scale, map_index,
     )

@@ -38,18 +38,21 @@ from . import csm_cuda, hit_images_cuda, quant
 def theta_search_params(ranges, beam_mask, resolution, range_theta, n_theta):
     """Search step and window in theta (``scan_matcher_correlative.cpp:
     255-274``): ``step = 2 asin(0.5 res / max_range)``, ``win =
-    ceil(0.5 range_theta / step)``.  Returns (step_theta f32, theta0_index
-    i32, theta_mask [n_theta] bool), all on the scan's device."""
+    ceil(0.5 range_theta / step)``.  Beams ``[..., B]``, one set per
+    candidate along the leading axes.  Returns (step_theta f32 ``[...]``,
+    theta0_index i32 ``[...]``, theta_mask bool ``[..., n_theta]``), all on
+    the scan's device."""
     dev = ranges.device
-    max_range = torch.where(beam_mask, ranges, 0.0).max()
+    max_range = torch.where(beam_mask, ranges, 0.0).amax(dim=-1)
     tt = torch.div(f32(resolution, dev), max_range)
     step_theta = 2.0 * devmath.asin(0.5 * tt)
     win_t = torch.ceil(torch.div(f32(0.5 * range_theta, dev), step_theta))
     win_t = win_t.to(torch.int32)
     half = n_theta // 2
     theta0_index = -torch.clamp(win_t, max=half)
-    t_idx = theta0_index + torch.arange(n_theta, dtype=torch.int32, device=dev)
-    theta_mask = (t_idx >= -win_t) & (t_idx <= win_t)
+    t_idx = theta0_index[..., None] + torch.arange(
+        n_theta, dtype=torch.int32, device=dev)
+    theta_mask = (t_idx >= -win_t[..., None]) & (t_idx <= win_t[..., None])
     return step_theta, theta0_index, theta_mask
 
 
@@ -57,82 +60,97 @@ def beam_cells(
     ranges, angles, beam_mask, sensor_pose, theta0_index, step_theta,
     theta_mask, resolution, offset_xy, *, n_theta, crop_rows, crop_cols,
 ):
-    """Per-(theta, beam) endpoint cells in crop coordinates.
+    """Per-(theta, beam) endpoint cells in crop coordinates, for beams
+    ``[..., B]``, poses ``[..., 3]`` and offsets ``[..., 2]`` with the
+    leading axes one per candidate (none for a single scan).
 
-    Returns (hr, hc, valid, r0, c0): [T, B] i32 crop coords, validity
-    (beam mask and inside the crop), and the crop anchor in full-map cell
-    coordinates (0-d i32)."""
+    Returns (hr, hc, valid, r0, c0): ``[..., T, B]`` i32 crop coords,
+    validity (beam mask and inside the crop), and the crop anchor in
+    full-map cell coordinates (i32 ``[...]``)."""
     dev = ranges.device
     res = f32(resolution, dev)
-    t_idx = theta0_index + torch.arange(n_theta, dtype=torch.int32, device=dev)
-    thetas = sensor_pose[2] + t_idx.to(torch.float32) * step_theta
-    ang = thetas[:, None] + angles[None, :]
-    hx = sensor_pose[0] + ranges[None, :] * devmath.cos(ang)
-    hy = sensor_pose[1] + ranges[None, :] * devmath.sin(ang)
-    col = torch.floor(torch.div(hx - offset_xy[0], res)).to(torch.int32)
-    row = torch.floor(torch.div(hy - offset_xy[1], res)).to(torch.int32)
+    t_idx = theta0_index[..., None] + torch.arange(
+        n_theta, dtype=torch.int32, device=dev)
+    thetas = (sensor_pose[..., 2, None]
+              + t_idx.to(torch.float32) * step_theta[..., None])
+    ang = thetas[..., :, None] + angles[..., None, :]
+    rng = ranges[..., None, :]
+    hx = sensor_pose[..., 0, None, None] + rng * devmath.cos(ang)
+    hy = sensor_pose[..., 1, None, None] + rng * devmath.sin(ang)
+    col = torch.floor(torch.div(hx - offset_xy[..., 0, None, None], res))
+    row = torch.floor(torch.div(hy - offset_xy[..., 1, None, None], res))
+    col, row = col.to(torch.int32), row.to(torch.int32)
 
     # Crop anchor over valid (beam, theta) pairs only, a touch early so
     # floor rounding never clips the first beam.
     big = 1 << 30
-    bbox_mask = beam_mask[None, :] & theta_mask[:, None]
-    r0 = torch.where(bbox_mask, row, big).min() - 2
-    c0 = torch.where(bbox_mask, col, big).min() - 2
+    bbox_mask = beam_mask[..., None, :] & theta_mask[..., :, None]
+    r0 = torch.where(bbox_mask, row, big).amin(dim=(-2, -1)) - 2
+    c0 = torch.where(bbox_mask, col, big).amin(dim=(-2, -1)) - 2
 
-    hr = row - r0
-    hc = col - c0
+    hr = row - r0[..., None, None]
+    hc = col - c0[..., None, None]
     valid = (
-        beam_mask[None, :]
+        beam_mask[..., None, :]
         & (hr >= 0) & (hr < crop_rows)
         & (hc >= 0) & (hc < crop_cols)
     )
     return hr, hc, valid, r0, c0
 
 
-def sweep_input_window(prob, observed, r0, c0, x0, y0, *, in_rows, in_cols):
-    """The u8 ``[in_rows, in_cols, 2]`` window the sweep correlates
+def sweep_input_window(prob, observed, r0, c0, x0, y0, *, in_rows, in_cols,
+                       map_index=None):
+    """The u8 ``[..., in_rows, in_cols, 2]`` window the sweep correlates
     against, channels interleaved (prob level, observed * 255):
     ``win[r, c, :] = map[r0+y0+r, c0+x0+c]`` with zeros outside the
-    raster.
+    raster, one window per anchor ``r0``, ``c0`` (``[...]``).
 
-    The window start follows ``jax.lax.dynamic_slice`` into the map padded
-    by ``max(in_rows, in_cols)`` on every side: a start that would run off
-    the padded plane is clamped so the window fits.  The cut is a gather
-    with device-side indices, so no anchor value goes to the host."""
+    The maps are one raster ``[H, W]`` shared by every anchor, or a stack
+    of a step's distinct rasters ``[M, H, W]`` with ``map_index`` (i64
+    ``[N]``) naming each candidate's raster.  The window start follows
+    ``jax.lax.dynamic_slice`` into the map padded by ``max(in_rows,
+    in_cols)`` on every side: a start that would run off the padded plane
+    is clamped so the window fits.  The cut is a gather with device-side
+    indices, so no anchor value goes to the host."""
     if prob.dtype != torch.uint8:
         raise NotImplementedError(
             "the sweep takes u8 probability maps only; f32 maps are "
             "ROADMAP item 1.4 (precision='highest')"
         )
-    H, W = prob.shape
+    H, W = prob.shape[-2:]
     dev = prob.device
     pad = max(in_rows, in_cols)
     start_r = torch.clamp(r0 + y0 + pad, 0, H + 2 * pad - in_rows) - pad
     start_c = torch.clamp(c0 + x0 + pad, 0, W + 2 * pad - in_cols) - pad
-    rr = start_r + torch.arange(in_rows, dtype=torch.int32, device=dev)
-    cc = start_c + torch.arange(in_cols, dtype=torch.int32, device=dev)
-    inside = ((rr >= 0) & (rr < H))[:, None] & ((cc >= 0) & (cc < W))[None, :]
-    rs = torch.clamp(rr, 0, H - 1).long()[:, None]
-    cs = torch.clamp(cc, 0, W - 1).long()[None, :]
-    p = torch.where(inside, prob[rs, cs], 0)
-    o = torch.where(inside & observed[rs, cs], 255, 0).to(torch.uint8)
+    rr = start_r[..., None] + torch.arange(in_rows, dtype=torch.int32,
+                                           device=dev)
+    cc = start_c[..., None] + torch.arange(in_cols, dtype=torch.int32,
+                                           device=dev)
+    inside = (((rr >= 0) & (rr < H))[..., :, None]
+              & ((cc >= 0) & (cc < W))[..., None, :])
+    rs = torch.clamp(rr, 0, H - 1).long()[..., :, None]
+    cs = torch.clamp(cc, 0, W - 1).long()[..., None, :]
+    idx = (rs, cs) if map_index is None else (map_index[:, None, None], rs, cs)
+    p = torch.where(inside, prob[idx], 0)
+    o = torch.where(inside & observed[idx], 255, 0).to(torch.uint8)
     return torch.stack([p, o], dim=-1)
 
 
 def max_hit_multiplicity(hr, hc, ok, *, crop_cols):
-    """Max number of beams sharing one hit cell at any theta.  The JAX
-    package's int8 sweep wraps above 127 and folds this certificate into
-    the matcher's ``exact`` flag; the port's sums never wrap but keep the
-    certificate so ``exact`` and the dense re-runs match the reference."""
-    B = hr.shape[1]
-    uniq = -1 - torch.arange(B, dtype=torch.int32, device=hr.device)[None, :]
+    """Max number of beams sharing one hit cell at any theta (``[...]``
+    for cells ``[..., T, B]``).  The JAX package's int8 sweep wraps above
+    127 and folds this certificate into the matcher's ``exact`` flag; the
+    port's sums never wrap but keep the certificate so ``exact`` and the
+    dense re-runs match the reference."""
+    B = hr.shape[-1]
+    uniq = -1 - torch.arange(B, dtype=torch.int32, device=hr.device)
     key = torch.where(ok, hr * crop_cols + hc, uniq)
-    skey = torch.sort(key, dim=1).values
-    same = skey[:, 1:] == skey[:, :-1]
-    idx = torch.arange(1, B, dtype=torch.int32, device=hr.device)[None, :]
-    last_break = torch.cummax(torch.where(same, 0, idx), dim=1).values
+    skey = torch.sort(key, dim=-1).values
+    same = skey[..., 1:] == skey[..., :-1]
+    idx = torch.arange(1, B, dtype=torch.int32, device=hr.device)
+    last_break = torch.cummax(torch.where(same, 0, idx), dim=-1).values
     run = torch.where(same, idx - last_break, 0)
-    return run.max() + 1
+    return run.amax(dim=(-2, -1)) + 1
 
 
 def grid_offsets(ny, nx, stride, device) -> torch.Tensor:

@@ -2,8 +2,8 @@
 
 Port of ``my_lidar_graph_slam_v2_tpu/pipeline/factory.py``
 (``slam_module_factory.cpp``): matchers selected by the reference's type
-names, the default loop-closing backend in its serial form, and the
-reference's default system, with the JAX package's signatures and
+names, the default loop-closing backend (batched or serial detector), and
+the reference's default system, with the JAX package's signatures and
 defaults plus ``device``, which the factory hands to every module.
 """
 from __future__ import annotations
@@ -21,6 +21,7 @@ from ..matching.correlative import CorrelativeConfig, ScanMatcherCorrelative
 from ..matching.linear_solver import LinearSolverConfig, ScanMatcherLinearSolver
 from ..metrics.registry import MetricManager
 from ..models.fused_matcher import FusedCorrelativeGNMatcher
+from ..parallel.loop_sharded import LoopDetectorShardedCorrelative
 from ..sensor.filters import ScanAccumulator, ScanInterpolator, ScanOutlierFilter
 from .backend import LidarGraphSlamBackend
 from .frontend import FrontendConfig, LidarGraphSlamFrontend
@@ -58,51 +59,50 @@ def create_default_backend(
     inline: bool = True,
     sharded: Optional[bool] = None,
 ):
-    """Default backend on ``device``: nearest searcher + the fused
-    correlative loop detector (2.5 m x 2.5 m x 0.5 rad, crop 448) + LM
-    optimizer, matching ``launcher_settings_default.json`` /Backend.
+    """Default backend on ``device``: nearest searcher + the correlative
+    loop detector (2.5 m x 2.5 m x 0.5 rad, crop 448) + LM optimizer,
+    matching ``launcher_settings_default.json`` /Backend.
 
-    Only the serial detector (``sharded=False``) is ported.  The JAX
-    default, one batched launch for all of a step's candidates
-    (``parallel/loop_sharded.py``), is the next backend PR; ``sharded=None``
-    and ``sharded=True`` raise until then."""
-    if sharded is not False:
-        raise NotImplementedError(
-            "the batched loop detector (sharded=None/True, "
-            "parallel/loop_sharded.py) is not ported yet: it is the next "
-            "PR of ROADMAP's queue; pass sharded=False for the serial "
-            "detector"
-        )
-    loop_matcher = FusedCorrelativeGNMatcher(
-        CorrelativeConfig(
-            range_x=2.5,
-            range_y=2.5,
-            range_theta=0.5,
-            resolution=resolution,
-            n_theta_max=n_theta_max,
-            crop_rows=crop,
-            crop_cols=crop,
-        ),
-        LinearSolverConfig(resolution=resolution),
-        device,
-        name="LoopDetector.ScanMatcherCorrelative",
-        final_name="LoopDetector.FinalScanMatcherLinearSolver",
+    ``sharded=None`` (the default) and ``True`` run all of a backend
+    step's candidates as one batch on ``device``
+    (``parallel/loop_sharded.py``: one coarse and one fine sweep launch per
+    step), as the JAX package's default does on one device; ``False``
+    runs the serial fused detector, one candidate at a time."""
+    loop_cfg = CorrelativeConfig(
+        range_x=2.5,
+        range_y=2.5,
+        range_theta=0.5,
+        resolution=resolution,
+        n_theta_max=n_theta_max,
+        crop_rows=crop,
+        crop_cols=crop,
+    )
+    detector_cfg = LoopDetectorConfig(
+        score_threshold=score_threshold,
+        known_rate_threshold=known_rate_threshold,
+        beam_capacity=beam_capacity,
+        usable_range_max=usable_range_max,
     )
     final_matcher = ScanMatcherLinearSolver(
         LinearSolverConfig(resolution=resolution), device,
         name="LoopDetector.FinalScanMatcherLinearSolver",
     )
-    detector = LoopDetectorCorrelative(
-        LoopDetectorConfig(
-            score_threshold=score_threshold,
-            known_rate_threshold=known_rate_threshold,
-            beam_capacity=beam_capacity,
-            usable_range_max=usable_range_max,
-        ),
-        loop_matcher,
-        final_matcher,
-        resolution=resolution,
-    )
+    if sharded is not False:
+        detector = LoopDetectorShardedCorrelative(
+            detector_cfg, loop_cfg, final_matcher, device,
+            resolution=resolution,
+        )
+    else:
+        detector = LoopDetectorCorrelative(
+            detector_cfg,
+            FusedCorrelativeGNMatcher(
+                loop_cfg, LinearSolverConfig(resolution=resolution), device,
+                name="LoopDetector.ScanMatcherCorrelative",
+                final_name="LoopDetector.FinalScanMatcherLinearSolver",
+            ),
+            final_matcher,
+            resolution=resolution,
+        )
     searcher = LoopSearcherNearest(
         LoopSearcherConfig(**(searcher_overrides or {}))
     )

@@ -367,6 +367,29 @@ class LidarGraphSlam:
         with self._lock:
             return self.builder.construct_global_map(self.pose_graph)
 
+    def get_latest_map(self):
+        """(map pose, u8 raster) of the rebuilt latest map."""
+        with self._lock:
+            self.builder.update_latest_map(self.pose_graph)
+            return self.builder.latest_map_pose.copy(), self.builder.latest_raster()
+
     def get_trajectory(self) -> np.ndarray:
         with self._lock:
             return self.pose_graph.scan_poses()
+
+    def get_poses_with_times(self):
+        """(times[N], poses[N,3]) of every scan node — the payload of the
+        reference's ``GetPoses`` used by the TCP client
+        (``slam_launcher.cpp:288-296``)."""
+        with self._lock:
+            times = np.array([
+                nd.scan_data.time_stamp if nd.scan_data is not None else 0.0
+                for nd in self.pose_graph.scan_nodes
+            ])
+            return times, self.pose_graph.scan_poses()
+
+    def get_latest_scan(self):
+        """Scan data of the newest scan node (``GetLatestScan``)."""
+        with self._lock:
+            nodes = self.pose_graph.scan_nodes
+            return nodes[-1].scan_data if nodes else None

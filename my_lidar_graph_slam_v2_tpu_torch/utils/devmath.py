@@ -60,6 +60,6 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.to(torch.float64) @ b.to(torch.float64)).to(a.dtype)
 
 
-def sum(x: torch.Tensor) -> torch.Tensor:  # noqa: A001 - mirrors torch.sum
-    """Sum of all elements accumulated in f64, rounded to ``x``'s dtype."""
-    return x.to(torch.float64).sum().to(x.dtype)
+def sum(x: torch.Tensor, dim: int) -> torch.Tensor:  # noqa: A001 - mirrors torch.sum
+    """Sum along ``dim`` accumulated in f64, rounded to ``x``'s dtype."""
+    return x.to(torch.float64).sum(dim=dim).to(x.dtype)

@@ -74,6 +74,7 @@ from my_lidar_graph_slam_v2_tpu_torch.metrics.registry import MetricManager
 from my_lidar_graph_slam_v2_tpu_torch.ops import csm_cuda, hit_images_cuda
 from my_lidar_graph_slam_v2_tpu_torch.pipeline import factory
 from my_lidar_graph_slam_v2_tpu_torch.pipeline.backend import LidarGraphSlamBackend
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LOSS_RTOL = 2e-6
 LOSS_ATOL = float(np.finfo(np.float32).tiny)
@@ -335,13 +336,18 @@ def test_bb_backend_configs_match_reference(bb_runs):
 # ---- the default backend's serial form ------------------------------------
 def test_default_backend_serial_run():
     """``create_default_backend(sharded=False)``: the fused correlative
-    detector at crop 448 closes the loop of a short world; the JAX
-    default (the batched detector) is not ported and raises."""
+    detector at crop 448 closes the loop of a short world; the default
+    builds the batched detector (``tests/test_torch_loop_batched.py``)."""
+    from my_lidar_graph_slam_v2_tpu_torch.parallel.loop_sharded import (
+        LoopDetectorShardedCorrelative,
+    )
+
     seq = _sequence(port_synthetic, step=0.2)
     kw = dict(beam_capacity=256, usable_range_max=10.0, n_theta_max=64,
               searcher_overrides=dict(travel_dist_threshold=6.0))
-    with pytest.raises(NotImplementedError):
-        factory.create_default_backend(device="cpu", **kw)
+    assert isinstance(
+        factory.create_default_backend(device="cpu", **kw).loop_detector,
+        LoopDetectorShardedCorrelative)
     backend = factory.create_default_backend(device="cpu", sharded=False, **kw)
     slam = factory.create_default_slam(device="cpu", backend=backend, **FRONT)
     est, gt, loops = _drive(slam, seq)

@@ -36,6 +36,7 @@ from my_lidar_graph_slam_v2_tpu_torch.matching.types import (
 from my_lidar_graph_slam_v2_tpu_torch.ops import csm, pool
 
 from tests.test_matchers import build_map, make_scan_arrays
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 POSE_TOL = 1e-6
 COST_RTOL = 1e-4

@@ -307,6 +307,7 @@ def test_sweep_and_kernel_wrapper_reject_what_the_kernel_does_not_take(case):
 # (tests/torch_sweep_cases.py: tiles off the window, beams on its edge, an
 # all-masked theta, 300 beams in one cell, rows not 4-byte aligned).
 from torch_sweep_cases import TILE_CASES, tile_case  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _brute_sweep(win, hr, hc, ok, off):

@@ -179,6 +179,56 @@ def test_sweep_from_hits_cuda_equals_cpu(cuda_device):
             assert torch.equal(g.cpu(), r)
 
 
+def _batched_core_inputs():
+    """Three candidates on a stack of two u8 maps (two share map 0), their
+    beams, map-local poses, offsets and the full coarse maps."""
+    from my_lidar_graph_slam_v2_tpu_torch.ops import pool
+
+    rng = np.random.default_rng(5)
+    prob = torch.as_tensor(rng.integers(0, 256, (2, 320, 320)).astype(np.uint8))
+    obs = torch.as_tensor(rng.uniform(size=(2, 320, 320)) < 0.8)
+    coarse = [pool.sliding_window_max2d(a, 5) for a in (prob, obs)]
+    N, B = 3, 192
+    angles = np.tile(np.linspace(-2.5, 2.5, B, dtype=np.float32), (N, 1))
+    return dict(
+        maps=(prob, obs, *coarse),
+        beams=(torch.as_tensor(rng.uniform(1, 5, (N, B)).astype(np.float32)),
+               torch.as_tensor(angles),
+               torch.as_tensor(rng.uniform(size=(N, B)) < 0.9)),
+        poses=torch.as_tensor(rng.uniform(-0.5, 0.5, (N, 3)).astype(np.float32)),
+        offsets=torch.full((N, 2), -8.0),
+        index=torch.tensor([0, 1, 0]),
+    )
+
+
+def test_batched_core_is_bitwise_equal_on_cuda_and_cpu(cuda_device):
+    """The batched loop detector's core (``correlative_core_batch``, one
+    coarse and one fine sweep launch for the batch) gives the same bits on
+    the card as on the CPU, pruned and dense."""
+    from my_lidar_graph_slam_v2_tpu_torch.matching.correlative import (
+        CorrelativeConfig,
+        correlative_core_batch,
+    )
+
+    cfg = CorrelativeConfig(range_x=1.0, range_y=1.0, range_theta=0.4,
+                            n_theta_max=64, crop_rows=256, crop_cols=256,
+                            fine_block_b=20)
+    x = _batched_core_inputs()
+    args = (*x["maps"], *x["beams"], x["poses"], x["offsets"])
+    for dense in (False, True):
+        ref = correlative_core_batch(cfg, *args, 0.2, 0.1,
+                                     map_index=x["index"], dense=dense)
+        before = csm_cuda.LAUNCHES
+        got = correlative_core_batch(
+            cfg, *(a.to(cuda_device) for a in args), 0.2, 0.1,
+            map_index=x["index"].to(cuda_device), dense=dense)
+        torch.cuda.synchronize(cuda_device)
+        assert csm_cuda.LAUNCHES == before + 2
+        for g, r in zip(got, ref):
+            assert g.device.type == "cuda"
+            assert torch.equal(g.cpu(), r)
+
+
 def test_matching_and_lm_are_bitwise_equal_on_cuda_and_cpu(cuda_device):
     """The f32 math that differs by device (trig, sums over beams, the
     small solves, the LM) runs through ``utils/devmath.py`` or in f64, so

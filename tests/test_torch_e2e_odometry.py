@@ -17,6 +17,7 @@ from my_lidar_graph_slam_v2_tpu_torch import reference
 from my_lidar_graph_slam_v2_tpu_torch.datasets import synthetic as port_synthetic
 from my_lidar_graph_slam_v2_tpu_torch.ops import csm_cuda
 from my_lidar_graph_slam_v2_tpu_torch.pipeline.factory import create_default_slam
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SIZES = dict(map_rows=512, map_cols=512, beam_capacity=512,
              samples_per_beam=320, usable_range_max=10.0, n_theta_max=96,

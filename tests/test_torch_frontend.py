@@ -29,6 +29,7 @@ from my_lidar_graph_slam_v2_tpu_torch.models.fused_matcher import (
     FusedCorrelativeGNMatcher as PFused,
 )
 from my_lidar_graph_slam_v2_tpu_torch.pipeline.factory import create_default_slam
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SIZES = dict(map_rows=384, map_cols=384, samples_per_beam=256,
              usable_range_max=8.0, n_theta_max=64, crop=256)

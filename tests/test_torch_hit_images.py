@@ -14,6 +14,7 @@ import jax.numpy as jnp
 from my_lidar_graph_slam_v2_tpu.ops import csm as jcsm
 from my_lidar_graph_slam_v2_tpu.ops import csm_pallas
 from my_lidar_graph_slam_v2_tpu_torch.ops import csm, hit_images_cuda
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T, B, CR, CC = 7, 320, 40, 48
 

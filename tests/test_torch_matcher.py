@@ -46,6 +46,7 @@ from my_lidar_graph_slam_v2_tpu_torch.metrics.registry import (
 )
 from my_lidar_graph_slam_v2_tpu_torch.models import fused_matcher as pfm
 from my_lidar_graph_slam_v2_tpu_torch.utils.transfer import fetch, to_device
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SIZES = dict(map_rows=384, map_cols=384, samples_per_beam=320,
              usable_range_max=8.0, n_theta_max=96, crop=320)

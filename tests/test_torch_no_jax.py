@@ -1,9 +1,11 @@
 """The port runs without JAX and without the JAX package: a fresh
 interpreter with both imports blocked imports the port, runs a small
 frontend through the factory with the branch-and-bound loop backend, one
-branch-and-bound loop match and one pose-graph solve, and ends with
-neither loaded; and no source of the port, nor its scripts, has an import
-statement for either."""
+branch-and-bound loop match, one batched correlative detection (the
+default backend's) and one pose-graph solve, imports the launcher and its
+modules and builds a system from settings, and ends with neither loaded;
+and no source of the port, nor its scripts, has an import statement for
+either."""
 import ast
 import os
 import subprocess
@@ -95,6 +97,18 @@ snap = slam.get_pose_graph_for_optimization()
 _, _, stats = backend.optimizer.optimize(*snap[2:])
 assert stats["iterations"] >= 1
 create_default_backend(device="cpu", sharded=False)
+batched = create_default_backend(device="cpu", beam_capacity=128,
+                                 n_theta_max=16, crop=96).loop_detector
+batched.detect([q])
+assert batched.host_fetches == 1, "the batched detector did not run"
+
+from my_lidar_graph_slam_v2_tpu_torch.config import settings
+from my_lidar_graph_slam_v2_tpu_torch.io import carmen, graph_plot, map_saver
+from my_lidar_graph_slam_v2_tpu_torch.network import slam_client
+from my_lidar_graph_slam_v2_tpu_torch.pipeline import checkpoint, launcher
+
+settings.create_slam_from_settings({}, map_rows=128, map_cols=128,
+                                   n_theta_max=16, crop=96, device="cpu")
 assert not [m for m in sys.modules if _blocked(m)]
 print("ok", slam.process_count)
 """
@@ -102,7 +116,8 @@ print("ok", slam.process_count)
 
 def test_port_imports_and_matches_without_jax():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, PYTHONPATH=root)
+    # one torch thread, as tests/torch_threads.py explains
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=root, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

@@ -18,6 +18,7 @@ from my_lidar_graph_slam_v2_tpu.ops import quant as jquant
 from my_lidar_graph_slam_v2_tpu.ops import rasterize as jras
 from my_lidar_graph_slam_v2_tpu_torch.core import pose as P
 from my_lidar_graph_slam_v2_tpu_torch.ops import gauss_newton, pool, quant, rasterize
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _t(a):
