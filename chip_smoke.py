@@ -15,8 +15,9 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    (:func:`kernel_shapes`: the frontend's coarse, fine and dense sweeps,
    the serial correlative loop detector's crop-448 coarse and block
    sweeps, a block sweep of all 208 thetas for a batch of 8, 300 beams in
-   one cell, and the batched loop detector's coarse and block sweeps for
-   a batch of 8); the hit-image kernel likewise at branch-and-bound's shape, the
+   one cell, the batched loop detector's coarse and block sweeps for a
+   batch of 8, and the grid search's one 51 x 51 tile over 101 thetas at
+   crop 448 on a scan of config #3's world); the hit-image kernel likewise at branch-and-bound's shape, the
    frontend crop and a degenerate shape.  Each kernel's device time comes
    from CUDA-graph replays (:func:`_graph_ms`), beside its bound, the
    plain version's time and one library call's (``F.conv2d`` of the
@@ -55,7 +56,21 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    ``--device`` (so CUDA); the saved pose graph read back has phase 7's
    keyframe count, a loop edge and ATE below odometry's, and the PNG and
    metrics JSON parse.
-9. Prints the kernel summary line (every number of it measured or, for
+9. The GridSearch loop slice: config #3's world through
+   ``create_slam_from_settings`` (inline) with the fused frontend and a
+   loop group whose matcher is GridSearch at the reference's steps
+   (2.5 m x 2.5 m x 0.5 rad, 0.05 / 0.05 / 0.005) with the GreedyEndpoint
+   cost, on the card and on the CPU: the same keyframes and loop edges,
+   bitwise-equal poses, at least one loop edge, ATE below odometry's and
+   exactly one sweep launch per grid-search match; prints the median ms
+   per match and per backend step.
+10. The HillClimbing frontend: the office sequence of phase 4 through
+    ``create_slam_from_settings`` with the HillClimbing matcher and its
+    reference cost, GreedyEndpoint, and the Empty loop detector, on the
+    card and on the CPU: the same keyframes, bitwise-equal finite poses,
+    no sweep launch; prints ms, climbing iterations and fetches per
+    keyframe and the ATE beside odometry's.
+11. Prints the kernel summary line (every number of it measured or, for
    ``bound_ms``, computed in this run), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -197,7 +212,9 @@ def kernel_shapes():
     detector's two sweeps for a batch of 8 candidates: the coarse sweep
     (``loop_coarse_batch``, one 11x11 tile at stride 5 each) and the
     block-pruned fine sweep (``loop_fine_batch``, top-32 thetas, each
-    candidate its own 10 blocks)."""
+    candidate its own 10 blocks); and the grid search's dense sweep
+    (``grid_search``: 101 thetas, one 51 x 51 tile at stride 1, crop 448,
+    the cells of a scan of config #3's world)."""
     rng = np.random.default_rng(1)
 
     def pick_blocks():
@@ -226,6 +243,8 @@ def kernel_shapes():
         dict(shape="loop_fine_batch", N=8, T=32, crop=448, win=502,
              tile=(5, 5, 1),
              origins=np.stack([pick_blocks() for _ in range(8)])),
+        dict(shape="grid_search", N=1, T=101, crop=448, win=498,
+             tile=(51, 51, 1), origins=one),
     ]
     for s in shapes:
         s.update(B=512, in_r=s["win"], in_c=s["win"],
@@ -233,17 +252,48 @@ def kernel_shapes():
     return shapes
 
 
+def grid_search_cells():
+    """Beam cells ``[1, 101, 512]`` of the grid search at the reference's
+    loop window (thetas at 0.005 rad over +-0.25 rad, crop 448) for one
+    scan of config #3's world after the frontend's outlier filter and
+    interpolator, padded as the loop detector pads it (512 beams)."""
+    from my_lidar_graph_slam_v2_tpu_torch.loop.detector import scan_to_arrays
+    from my_lidar_graph_slam_v2_tpu_torch.ops import csm
+    from my_lidar_graph_slam_v2_tpu_torch.sensor.filters import (
+        ScanInterpolator,
+        ScanOutlierFilter,
+    )
+
+    seq = build_loop_sequence()
+    scan = seq.scans[len(seq.scans) // 2]
+    scan = ScanInterpolator(dist_scans=0.05).interpolate(
+        ScanOutlierFilter(valid_range_max=20.0).remove_outliers(scan))
+    a = scan_to_arrays(scan, 512, "cpu")
+    T = 101
+    hr, hc, valid, _, _ = csm.beam_cells(
+        a.ranges, a.angles, a.mask,
+        torch.as_tensor(scan.odom_pose, dtype=torch.float32),
+        torch.tensor(-(T // 2), dtype=torch.int32),
+        torch.tensor(0.005, dtype=torch.float32),
+        torch.ones(T, dtype=torch.bool), 0.05, torch.tensor([-25.6, -25.6]),
+        n_theta=T, crop_rows=448, crop_cols=448)
+    return hr[None].numpy(), hc[None].numpy(), valid[None].numpy()
+
+
 def sweep_inputs(rng, s):
     """NumPy inputs of shape ``s``: the u8 window ``[N, 2, in_r, in_c]``
     (prob levels, observed * 255; channels first), beam cells in the crop
     and a mask with ~95 % of the beams valid; the degenerate shape puts
-    300 valid beams of every theta in one cell."""
+    300 valid beams of every theta in one cell, and the grid search takes
+    a real scan's cells (:func:`grid_search_cells`)."""
     N, T, B, crop = s["N"], s["T"], s["B"], s["crop"]
     hr = rng.integers(0, crop, (N, T, B)).astype(np.int32)
     hc = rng.integers(0, crop, (N, T, B)).astype(np.int32)
     ok = rng.uniform(size=(N, T, B)) < 0.95
     if s["shape"] == "degenerate":
         hr[:, :, :300], hc[:, :, :300], ok[:, :, :300] = 17, 23, True
+    if s["shape"] == "grid_search":
+        hr, hc, ok = grid_search_cells()
     prob = rng.integers(0, 256, (N, 1, s["in_r"], s["in_c"]))
     obs = 255 * (rng.uniform(size=(N, 1, s["in_r"], s["in_c"])) < 0.7)
     win = np.concatenate([prob, obs], axis=1).astype(np.uint8)
@@ -334,14 +384,17 @@ def build_sequence(target_keyframes: int, seed: int = 0, step: float = 0.08,
     )
 
 
-def run_slice(device, seq, **factory_kw):
-    """Drive the port's frontend over ``seq`` on ``device``; returns the
-    trajectory, ground truth at keyframes and per-keyframe host times."""
+def run_slice(device, seq, make_slam=None, **factory_kw):
+    """Drive the port's frontend over ``seq`` on ``device``, the system of
+    ``create_default_slam`` or of ``make_slam(device)``; returns the
+    trajectory, ground truth at keyframes, per-keyframe host times and the
+    frontend's matcher."""
     from my_lidar_graph_slam_v2_tpu_torch.pipeline.factory import create_default_slam
 
     device = torch.device(device)
     cuda = device.type == "cuda"
-    slam = create_default_slam(device=device, **factory_kw)
+    slam = (make_slam(device) if make_slam
+            else create_default_slam(device=device, **factory_kw))
     gt, kf_ms = [], []
     if cuda:
         torch.cuda.synchronize(device)
@@ -355,8 +408,9 @@ def run_slice(device, seq, **factory_kw):
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
     slam.stop_backend()
+    matcher = slam.frontend.scan_matcher
     return dict(est=slam.get_trajectory(), gt=np.asarray(gt), wall=wall,
-                kf_ms=kf_ms, fetches=slam.frontend.scan_matcher.host_fetches)
+                kf_ms=kf_ms, fetches=matcher.host_fetches, matcher=matcher)
 
 
 def _sync_sites(fn):
@@ -1068,6 +1122,171 @@ def check_launcher(device, keyframes):
     return stats
 
 
+# The greedy-endpoint cost group of the reference's settings file.
+COST_GREEDY_ENDPOINT = {"HitAndMissedDist": 0.075, "OccupancyThreshold": 0.1,
+                        "KernelSize": 1, "StandardDeviation": 0.05,
+                        "ScalingFactor": 1.0}
+# Phase 9: phase 8's windows and searcher, and a loop group whose matcher
+# is GridSearch at the reference file's steps, with its GreedyEndpoint cost.
+GRID_SEARCH_SETTINGS = {
+    "ScanMatcherRealTimeCorrelative": {
+        "SearchRangeX": 0.25, "SearchRangeY": 0.25, "SearchRangeTheta": 0.5},
+    "LoopSearcherNearest": {"TravelDistThreshold": 6.0},
+    "Backend": {"LoopDetectorConfigGroup": "LoopDetectorGridSearch"},
+    "LoopDetectorGridSearch": {
+        "ScanMatcherType": "GridSearch",
+        "ScanMatcher": {
+            "SearchRangeX": 2.5, "SearchRangeY": 2.5, "SearchRangeTheta": 0.5,
+            "SearchStepX": 0.05, "SearchStepY": 0.05,
+            "SearchStepTheta": 0.005, "CostType": "GreedyEndpoint",
+            "CostConfigGroup": "CostGreedyEndpoint"}},
+    "CostGreedyEndpoint": COST_GREEDY_ENDPOINT,
+}
+# Phase 10: the reference file's HillClimbing group (GreedyEndpoint) as the
+# frontend's matcher, no loop detection.
+HILL_CLIMBING_SETTINGS = {
+    "Frontend": {"LocalSlam": {
+        "ScanMatcherType": "HillClimbing",
+        "ScanMatcherConfigGroup": "ScanMatcherHillClimbing"}},
+    "ScanMatcherHillClimbing": {
+        "LinearStep": 0.1, "AngularStep": 0.1, "MaxIterations": 100,
+        "MaxNumOfRefinements": 5, "CostType": "GreedyEndpoint",
+        "CostConfigGroup": "CostGreedyEndpoint"},
+    "CostGreedyEndpoint": COST_GREEDY_ENDPOINT,
+    "Backend": {"LoopDetectorType": "Empty"},
+}
+
+
+def settings_slam(settings):
+    """A ``make_slam`` for :func:`run_slice` / :func:`run_loop_slice`:
+    ``create_slam_from_settings(settings)`` with the inline backend."""
+    from my_lidar_graph_slam_v2_tpu_torch.config.settings import (
+        create_slam_from_settings,
+    )
+
+    def make(device):
+        return create_slam_from_settings(settings, device=device,
+                                         inline_backend=True)
+
+    return make
+
+
+def check_grid_search_loop_slice(device):
+    """Phase 9: the GridSearch loop detector on config #3's world, on the
+    card and on the CPU (plain sweep).  One run on the card (warm from
+    the earlier phases), the launch count set to 0 just before it and read
+    just after; each grid-search match and each backend step timed by host
+    clock (a match's result fetch synchronizes), its sweep launches
+    counted apart from the frontend's."""
+    from my_lidar_graph_slam_v2_tpu_torch.datasets import synthetic
+    from my_lidar_graph_slam_v2_tpu_torch.ops import csm_cuda
+
+    seq = build_loop_sequence()
+
+    def stages(slam):
+        return [(slam.backend.loop_detector.scan_matcher, "optimize_pose",
+                 "grid search match", False),
+                (slam.backend, "run_step", "backend step", False)]
+
+    kw = dict(make_slam=settings_slam(GRID_SEARCH_SETTINGS), stages=stages)
+    csm_cuda.LAUNCHES = 0
+    gpu = run_loop_slice(device, seq, count=lambda: csm_cuda.LAUNCHES, **kw)
+    sweep_launches = csm_cuda.LAUNCHES
+    cpu = run_loop_slice("cpu", seq, **kw)
+
+    n_kf = len(gpu["est"])
+    matches = gpu["stages"].get("grid search match", (0, [0.0], 0))
+    steps = gpu["stages"].get("backend step", (0, [0.0], 0))
+    odom = np.stack([s.odom_pose for s in seq.scans])
+    ate = synthetic.ate_rmse(gpu["est"], gpu["gt"])
+    ate_odom = synthetic.ate_rmse(odom, seq.ground_truth)
+    same_kf = len(cpu["est"]) == n_kf
+    stats = dict(
+        keyframes=n_kf, keyframes_cpu=len(cpu["est"]),
+        loop_edges=len(gpu["loops"]), loop_edges_cpu=len(cpu["loops"]),
+        ate_m=ate, ate_cpu_m=synthetic.ate_rmse(cpu["est"], cpu["gt"]),
+        ate_odom_m=ate_odom,
+        grid_search_matches=matches[0], csm_sweep_launches=sweep_launches,
+        grid_search_sweep_launches=matches[2],
+        frontend_sweep_launches=sweep_launches - matches[2],
+        host_fetches_per_match=gpu["fetches"] / max(matches[0], 1),
+        match_ms_median=statistics.median(matches[1]),
+        cpu_match_ms_median=statistics.median(
+            cpu["stages"]["grid search match"][1])
+        if "grid search match" in cpu["stages"] else None,
+        backend_steps=steps[0],
+        backend_step_ms_median=statistics.median(steps[1]),
+        wall_s=gpu["wall"], cpu_wall_s=cpu["wall"],
+        poses_bitwise_equal=same_kf and np.array_equal(gpu["est"], cpu["est"]),
+    )
+    print(f"grid_search_loop_slice {json.dumps(stats)}", flush=True)
+    if matches[0] < 1 or len(gpu["loops"]) < 1:
+        raise AssertionError(
+            f"{matches[0]} grid-search matches, {len(gpu['loops'])} loop edges")
+    if matches[2] != matches[0]:
+        raise AssertionError(
+            f"{matches[2]} sweep launches in {matches[0]} grid-search matches")
+    if not same_kf or gpu["loops"] != cpu["loops"]:
+        raise AssertionError(
+            f"cuda and cpu differ: keyframes {n_kf} / {len(cpu['est'])}, "
+            f"loop edges {gpu['loops']} / {cpu['loops']}")
+    if not stats["poses_bitwise_equal"]:
+        d = np.abs(gpu["est"] - cpu["est"])
+        raise AssertionError(
+            f"cuda and cpu poses differ: dxy {d[:, :2].max()}, dtheta "
+            f"{d[:, 2].max()}")
+    if not np.all(np.isfinite(gpu["est"])) or not ate < ate_odom:
+        raise AssertionError(f"ATE {ate} does not beat odometry {ate_odom}")
+    return stats
+
+
+def check_hill_climbing_frontend(device):
+    """Phase 10: the HillClimbing frontend (GreedyEndpoint) on phase 4's
+    office sequence, on the card (warm from the earlier phases) and on the
+    CPU; the launch count set to 0 just before the card's run and read
+    just after."""
+    from my_lidar_graph_slam_v2_tpu_torch.datasets import synthetic
+    from my_lidar_graph_slam_v2_tpu_torch.ops import csm_cuda
+
+    seq = build_sequence(KEYFRAMES)
+    make = settings_slam(HILL_CLIMBING_SETTINGS)
+    csm_cuda.LAUNCHES = 0
+    gpu = run_slice(device, seq, make_slam=make)
+    launches = csm_cuda.LAUNCHES
+    cpu = run_slice("cpu", seq, make_slam=make)
+
+    n_kf = len(gpu["est"])
+    m = gpu["matcher"]
+    odom = np.stack([s.odom_pose for s in seq.scans])
+    same_kf = len(cpu["est"]) == n_kf
+    stats = dict(
+        keyframes=n_kf, keyframes_cpu=len(cpu["est"]), scans=len(seq.scans),
+        wall_s=gpu["wall"], ms_per_keyframe=1e3 * gpu["wall"] / n_kf,
+        keyframe_ms_median=statistics.median(gpu["kf_ms"][1:]),
+        cpu_ms_per_keyframe=1e3 * cpu["wall"] / max(len(cpu["est"]), 1),
+        matches=m.matches, iterations_per_keyframe=m.iterations / m.matches,
+        host_fetches_per_keyframe=m.host_fetches / m.matches,
+        csm_sweep_launches=launches,
+        ate_m=synthetic.ate_rmse(gpu["est"], gpu["gt"]),
+        ate_odom_m=synthetic.ate_rmse(odom, seq.ground_truth),
+        poses_bitwise_equal=same_kf and np.array_equal(gpu["est"], cpu["est"]),
+    )
+    print(f"hill_climbing_frontend {json.dumps(stats)}", flush=True)
+    if n_kf < 40 or not same_kf:
+        raise AssertionError(
+            f"keyframes: cuda {n_kf}, cpu {len(cpu['est'])} (need >= 40)")
+    if not stats["poses_bitwise_equal"]:
+        d = np.abs(gpu["est"] - cpu["est"])
+        raise AssertionError(
+            f"cuda and cpu poses differ: dxy {d[:, :2].max()}, dtheta "
+            f"{d[:, 2].max()}")
+    if not np.all(np.isfinite(gpu["est"])):
+        raise AssertionError("non-finite poses")
+    if launches != 0:
+        raise AssertionError(f"{launches} sweep launches without a sweep")
+    return stats
+
+
 def _kernel_line(rows, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
     """Sums of ``keys`` over ``rows``, ``bound_by`` of the larger bound
     and the share of the bound."""
@@ -1107,6 +1326,8 @@ def main() -> int:
     corr = check_correlative_loop_slice(device)
     batched = check_batched_loop_slice(device, corr)
     cli = check_launcher(device, batched["keyframes"])
+    grid = check_grid_search_loop_slice(device)
+    hill = check_hill_climbing_frontend(device)
 
     # Top-level times: the frontend's two sweeps of a keyframe (coarse +
     # fine) and branch-and-bound's hit images; every shape is in "shapes".
@@ -1126,7 +1347,9 @@ def main() -> int:
                 branch_bound_loop=loop["csm_sweep_launches"],
                 correlative_loop=corr["csm_sweep_launches"],
                 batched_loop=batched["csm_sweep_launches"],
-                launcher=cli["csm_sweep_launches"]),
+                launcher=cli["csm_sweep_launches"],
+                grid_search_loop=grid["csm_sweep_launches"],
+                hill_climbing_frontend=hill["csm_sweep_launches"]),
             max_abs_err=max(r["max_abs_err"] for r in shapes),
             **_kernel_line(frontend),
             shapes=shapes,

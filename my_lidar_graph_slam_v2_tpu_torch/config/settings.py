@@ -5,8 +5,7 @@ Port of ``my_lidar_graph_slam_v2_tpu/config/settings.py`` with a
 own (ROADMAP 3.1): the loop detector's correlative matcher searches 2.5 m
 x 2.5 m x 0.5 rad when its group names no window, as
 ``create_default_backend`` does (the JAX loader falls back to the
-frontend's 0.25 m there), and the GridSearch and HillClimbing matchers
-raise until they are ported (ROADMAP item 1.15).
+frontend's 0.25 m there).
 
 The reference configures everything from one JSON file whose groups are
 referenced by name from other groups (e.g. ``/Frontend/LocalSlam/
@@ -38,6 +37,8 @@ from ..loop.searcher import LoopSearcherConfig, LoopSearcherNearest
 from ..matching.branch_bound import BranchBoundConfig, ScanMatcherBranchBound
 from ..matching.correlative import CorrelativeConfig, ScanMatcherCorrelative
 from ..matching.cost import CostConfig
+from ..matching.grid_search import GridSearchConfig, ScanMatcherGridSearch
+from ..matching.hill_climbing import HillClimbingConfig, ScanMatcherHillClimbing
 from ..matching.linear_solver import LinearSolverConfig, ScanMatcherLinearSolver
 from ..metrics.registry import MetricManager
 from ..models.fused_matcher import FusedCorrelativeGNMatcher
@@ -163,10 +164,33 @@ def create_scan_matcher_from_group(
             ),
             device, **named,
         )
-    if type_name in ("HillClimbing", "GridSearch"):
-        raise NotImplementedError(
-            f"the {type_name} scan matcher is not ported yet (ROADMAP item "
-            "1.15)"
+    if type_name == "HillClimbing":
+        return ScanMatcherHillClimbing(
+            HillClimbingConfig(
+                linear_step=float(g.get("LinearStep", 0.1)),
+                angular_step=float(g.get("AngularStep", 0.1)),
+                max_iterations=int(g.get("MaxIterations", 100)),
+                max_num_of_refinements=int(g.get("MaxNumOfRefinements", 5)),
+                resolution=resolution,
+                cost=_matcher_cost(settings, g, default_type="GreedyEndpoint"),
+            ),
+            device,
+        )
+    if type_name == "GridSearch":
+        return ScanMatcherGridSearch(
+            GridSearchConfig(
+                range_x=float(g.get("SearchRangeX", 2.5)),
+                range_y=float(g.get("SearchRangeY", 2.5)),
+                range_theta=float(g.get("SearchRangeTheta", 0.5)),
+                step_x=float(g.get("SearchStepX", 0.05)),
+                step_y=float(g.get("SearchStepY", 0.05)),
+                step_theta=float(g.get("SearchStepTheta", 0.005)),
+                resolution=resolution,
+                crop_rows=crop,
+                crop_cols=crop,
+                cost=_matcher_cost(settings, g),
+            ),
+            device,
         )
     if type_name == "BranchBound":
         return ScanMatcherBranchBound(

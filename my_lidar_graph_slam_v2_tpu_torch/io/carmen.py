@@ -1,6 +1,6 @@
 # The port's own copy of my_lidar_graph_slam_v2_tpu/io/carmen.py, logic
-# unchanged but for ``native`` (see read_carmen_log): the port imports
-# nothing of the JAX package.
+# unchanged but for ``native=None`` (see read_carmen_log): the port
+# imports nothing of the JAX package.
 """Carmen log reader.
 
 Host-side port of ``src/my_lidar_graph_slam/io/carmen/carmen_reader.cpp``:
@@ -101,19 +101,43 @@ def _guess_angle_increment(n: int) -> float:
 
 
 def read_carmen_log(path: str, native: Optional[bool] = None) -> List[object]:
-    """Returns the time-ordered list of OdometryData / ScanData records,
-    parsed by the Python tokenizer.
+    """Returns the time-ordered list of OdometryData / ScanData records.
 
-    ``native=True`` asks for the JAX package's C++ parser
-    (``native/carmen_reader.cpp``), which is not ported (ROADMAP item 1.13)
-    and raises; False and None (the default) both mean the Python reader.
-    The JAX reader's silent "try native, fall back" is not copied."""
+    ``native=True`` parses with the C++ parser (``native/
+    carmen_reader.cpp``, built with g++ at first use; it raises if it
+    cannot be built); False and None (the default) both mean the Python
+    reader.  The JAX reader's silent "try native, fall back" is not
+    copied."""
     if native:
-        raise NotImplementedError(
-            "the native C++ Carmen parser (native/) is not ported yet "
-            "(ROADMAP item 1.13); pass native=False or None"
-        )
+        return _read_native(path)
     return _read_python(path)
+
+
+def _read_native(path: str) -> List[object]:
+    from ..native import carmen_load_arrays
+
+    odom, meta, all_ranges = carmen_load_arrays(path)
+    records: List[tuple] = []
+    for row in odom:
+        records.append((
+            row[0],
+            OdometryData("ODOM", row[1], row[2:5].copy(),
+                         np.array([row[5], 0.0, row[6]])),
+        ))
+    for row in meta:
+        n = int(row[14])
+        off = int(row[15])
+        angles = row[12] + row[13] * np.arange(n)
+        records.append((
+            row[0],
+            ScanData(
+                "LASER", row[1], row[2:5].copy(), np.zeros(3),
+                row[5:8].copy(), row[8], row[9], row[10], row[11],
+                angles, all_ranges[off : off + n].copy(),
+            ),
+        ))
+    records.sort(key=lambda r: r[0])
+    return [r[1] for r in records]
 
 
 def _read_python(path: str) -> List[object]:

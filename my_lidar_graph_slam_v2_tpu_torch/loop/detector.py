@@ -2,7 +2,7 @@
 
 Port of ``my_lidar_graph_slam_v2_tpu/loop/detector.py``
 (``loop_detector_correlative.cpp``, ``loop_detector_branch_bound.cpp``,
-``loop_detector_empty.cpp``): for each candidate, match the query scan
+``loop_detector_grid_search.cpp``, ``loop_detector_empty.cpp``): for each candidate, match the query scan
 against the finished reference local map over a wide window with score
 and known-rate gates, refine with the final matcher (unless the matcher
 is fused and already refined), and emit a loop edge (map-local relative
@@ -156,3 +156,9 @@ class LoopDetectorBranchBound(LoopDetectorCorrelative):
     the same Detect flow with the branch-and-bound matcher
     (``matching/branch_bound.py``), whose pyramid is cached on the map
     cache's entry."""
+
+
+class LoopDetectorGridSearch(LoopDetectorCorrelative):
+    """``LoopDetectorGridSearch`` (``loop_detector_grid_search.cpp``): the
+    same Detect flow with the exhaustive grid-search matcher
+    (``matching/grid_search.py``)."""

@@ -18,6 +18,8 @@ from ..loop.detector import LoopDetectorConfig, LoopDetectorCorrelative
 from ..loop.searcher import LoopSearcherConfig, LoopSearcherNearest
 from ..matching.branch_bound import BranchBoundConfig, ScanMatcherBranchBound
 from ..matching.correlative import CorrelativeConfig, ScanMatcherCorrelative
+from ..matching.grid_search import GridSearchConfig, ScanMatcherGridSearch
+from ..matching.hill_climbing import HillClimbingConfig, ScanMatcherHillClimbing
 from ..matching.linear_solver import LinearSolverConfig, ScanMatcherLinearSolver
 from ..metrics.registry import MetricManager
 from ..models.fused_matcher import FusedCorrelativeGNMatcher
@@ -36,11 +38,10 @@ def create_scan_matcher(type_name: str, *, device, **kw):
         return ScanMatcherLinearSolver(LinearSolverConfig(**kw), device)
     if type_name == "BranchBound":
         return ScanMatcherBranchBound(BranchBoundConfig(**kw), device)
-    if type_name in ("GridSearch", "HillClimbing"):
-        raise NotImplementedError(
-            f"the {type_name} scan matcher is not ported yet (ROADMAP item "
-            "1.15)"
-        )
+    if type_name == "GridSearch":
+        return ScanMatcherGridSearch(GridSearchConfig(**kw), device)
+    if type_name == "HillClimbing":
+        return ScanMatcherHillClimbing(HillClimbingConfig(**kw), device)
     raise ValueError(f"unknown scan matcher type: {type_name}")
 
 

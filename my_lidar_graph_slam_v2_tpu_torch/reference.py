@@ -12,27 +12,39 @@ import numpy as np
 from .graph.loss import LossFunction
 from .graph.optimizer import OptimizerConfig
 from .grid.builder import GridMapBuilderConfig, LocalMap
+from .grid.counted import GridCounted
 from .matching.branch_bound import BranchBoundConfig
 from .matching.correlative import CorrelativeConfig
 from .matching.cost import CostConfig
+from .matching.grid_search import GridSearchConfig
+from .matching.hill_climbing import HillClimbingConfig
 from .matching.linear_solver import LinearSolverConfig
 from .matching.types import MapRaster, ScanArrays
 from .pipeline.frontend import FrontendConfig
 from .utils.transfer import to_device
 
 
-def correlative_config(fields: dict) -> CorrelativeConfig:
+def _with_cost(config_cls, fields: dict):
     fields = dict(fields)
     if fields.get("cost") is not None:
         fields["cost"] = CostConfig(**fields["cost"])
-    return CorrelativeConfig(**fields)
+    return config_cls(**fields)
+
+
+def correlative_config(fields: dict) -> CorrelativeConfig:
+    return _with_cost(CorrelativeConfig, fields)
 
 
 def branch_bound_config(fields: dict) -> BranchBoundConfig:
-    fields = dict(fields)
-    if fields.get("cost") is not None:
-        fields["cost"] = CostConfig(**fields["cost"])
-    return BranchBoundConfig(**fields)
+    return _with_cost(BranchBoundConfig, fields)
+
+
+def grid_search_config(fields: dict) -> GridSearchConfig:
+    return _with_cost(GridSearchConfig, fields)
+
+
+def hill_climbing_config(fields: dict) -> HillClimbingConfig:
+    return _with_cost(HillClimbingConfig, fields)
 
 
 def optimizer_config(fields: dict) -> OptimizerConfig:
@@ -114,3 +126,12 @@ def local_map(local_map_id, offset_xy, device, *, logodds=None,
         prob_q=to_device(prob_q, device, np.uint8) if compacted else None,
         compacted=compacted,
     )
+
+
+def grid_counted(hits, counts, device) -> GridCounted:
+    """A port GridCounted holding a JAX GridCounted's planes, given as
+    NumPy int32 ``[rows, cols]`` arrays."""
+    g = GridCounted(hits.shape[0], hits.shape[1], device)
+    g.hits = to_device(hits, device, np.int32)
+    g.counts = to_device(counts, device, np.int32)
+    return g

@@ -284,3 +284,115 @@ def test_matching_and_lm_are_bitwise_equal_on_cuda_and_cpu(cuda_device):
         assert a[2]["iterations"] == b[2]["iterations"]
         for k in ("error", "initial_error"):
             assert a[2][k] == pytest.approx(b[2][k], rel=2e-7, abs=0)
+
+
+def _matcher_scene():
+    """A u8 map with structure (a random room of wall cells), a scan of
+    its walls and a start pose off the truth; beams [B]."""
+    rng = np.random.default_rng(9)
+    H = W = 320
+    obs = np.zeros((H, W), bool)
+    obs[40:280, 40:280] = True
+    prob = np.where(obs, rng.integers(1, 30, (H, W)), 0).astype(np.uint8)
+    for r0, c0, r1, c1 in ((60, 60, 62, 260), (60, 60, 260, 62),
+                           (258, 60, 260, 260), (60, 258, 260, 260),
+                           (150, 120, 152, 200)):
+        prob[r0:r1, c0:c1] = rng.integers(200, 256, (r1 - r0, c1 - c0))
+    B = 360
+    angles = np.linspace(-np.pi, np.pi, B, endpoint=False).astype(np.float32)
+    ranges = rng.uniform(2.0, 5.0, B).astype(np.float32)
+    mask = rng.uniform(size=B) < 0.95
+    return dict(prob=torch.as_tensor(prob), obs=torch.as_tensor(obs),
+                ranges=torch.as_tensor(ranges), angles=torch.as_tensor(angles),
+                mask=torch.as_tensor(mask),
+                pose=torch.tensor([8.03, 7.96, 0.11]),
+                off=torch.tensor([0.013, -0.021]))
+
+
+@pytest.mark.parametrize("steps", [(0.05, 0.005), (0.03, 0.02)])
+def test_grid_search_is_bitwise_equal_on_cuda_and_cpu(cuda_device, steps):
+    """The grid-search core gives the same bits on the card as on the CPU:
+    integer steps through one sweep launch (T 101, one 51 x 51 tile, crop
+    448, the reference's loop window), arbitrary steps through the gather
+    core, with SquareError and GreedyEndpoint winner costs."""
+    from my_lidar_graph_slam_v2_tpu_torch.matching.cost import CostConfig
+    from my_lidar_graph_slam_v2_tpu_torch.matching.grid_search import (
+        GridSearchConfig,
+        grid_search_core,
+    )
+
+    step, step_theta = steps
+    x = _matcher_scene()
+    args = [x[k] for k in ("prob", "obs", "ranges", "angles", "mask", "pose",
+                           "off")]
+    for cost in (None, CostConfig(cost_type="GreedyEndpoint")):
+        cfg = GridSearchConfig(step_x=step, step_y=step, step_theta=step_theta,
+                               cost=cost)
+        ref = grid_search_core(cfg, *args, 0.1, 0.2)
+        before = csm_cuda.LAUNCHES
+        got = grid_search_core(cfg, *(a.to(cuda_device) for a in args),
+                               0.1, 0.2)
+        torch.cuda.synchronize(cuda_device)
+        assert csm_cuda.LAUNCHES == before + int(cfg.integer_steps)
+        for g, r in zip(got, ref):
+            assert g.device.type == "cuda"
+            assert torch.equal(g.cpu(), r)
+
+
+def test_greedy_endpoint_and_hill_climbing_are_bitwise_equal_on_cuda_and_cpu(
+        cuda_device):
+    """Greedy-endpoint costs of a batch of poses and the covariance, and a
+    whole hill-climbing match, give the same bits on the card."""
+    from my_lidar_graph_slam_v2_tpu_torch.matching import cost as pcost
+    from my_lidar_graph_slam_v2_tpu_torch.matching.hill_climbing import (
+        HillClimbingConfig,
+        ScanMatcherHillClimbing,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.matching.types import (
+        MapRaster,
+        ScanArrays,
+        ScanMatchingQuery,
+    )
+
+    x = _matcher_scene()
+    ccfg = pcost.CostConfig(cost_type="GreedyEndpoint")
+    poses = x["pose"] + torch.as_tensor(
+        np.random.default_rng(2).normal(0, 0.05, (6, 3)).astype(np.float32))
+    maps = [x[k] for k in ("prob", "obs", "ranges", "angles", "mask")]
+    for fn, p in ((pcost.cost_at, poses), (pcost.covariance_at, x["pose"])):
+        ref = fn(ccfg, *maps, p, 0.05, x["off"])
+        got = fn(ccfg, *(a.to(cuda_device) for a in maps), p.to(cuda_device),
+                 0.05, x["off"].to(cuda_device))
+        assert torch.equal(got.cpu(), ref)
+    out = []
+    for dev in ("cpu", cuda_device):
+        m = ScanMatcherHillClimbing(HillClimbingConfig(), dev)
+        raster = MapRaster(x["prob"].to(dev), x["obs"].to(dev), 0.05,
+                           x["off"].numpy().astype(np.float64))
+        scan = ScanArrays(x["ranges"].to(dev), x["angles"].to(dev),
+                          x["mask"].to(dev), np.zeros(3),
+                          int(x["mask"].sum()))
+        s = m.optimize_pose(ScanMatchingQuery(
+            raster, scan, x["pose"].numpy().astype(np.float64)))
+        out.append((s.estimated_pose, s.covariance, s.normalized_cost,
+                    m.iterations))
+    for a, b in zip(*out):
+        assert np.array_equal(a, b)
+
+
+def test_grid_counted_is_equal_on_cuda_and_cpu(cuda_device):
+    from my_lidar_graph_slam_v2_tpu_torch.grid.counted import GridCounted
+
+    rng = np.random.default_rng(4)
+    grids = [GridCounted(40, 30, d) for d in ("cpu", cuda_device)]
+    for _ in range(3):
+        batch = (rng.integers(-3, 43, 2000), rng.integers(-3, 33, 2000),
+                 rng.random(2000) > 0.4, rng.random(2000) > 0.1)
+        for g in grids:
+            g.update(*batch)
+    a, b = grids
+    for fn in ("prob", "values_u8"):
+        assert torch.equal(getattr(b, fn)().cpu(), getattr(a, fn)())
+    assert torch.equal(b.values_u16().to(torch.int32).cpu(),
+                       a.values_u16().to(torch.int32))
+    assert torch.equal(b.counts.cpu(), a.counts)

@@ -153,8 +153,11 @@ def test_carmen_writer_round_trip(tmp_path):
         np.testing.assert_allclose(r.odom_pose, s.odom_pose, atol=1e-9)
         assert r.time_stamp == pytest.approx(s.time_stamp, abs=1e-6)
     _records_equal(back, jcarmen.read_carmen_log(str(path), native=False))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        carmen.read_carmen_log(str(path), native=True)
+    native = carmen.read_carmen_log(str(path), native=True)
+    assert len(native) == len(back)
+    for a, b in zip(native, back):
+        np.testing.assert_array_equal(a.ranges, b.ranges)
+        np.testing.assert_array_equal(a.odom_pose, b.odom_pose)
 
 
 # ---- settings -------------------------------------------------------------
@@ -189,10 +192,14 @@ def test_settings_default_loop_window_is_the_factory_window():
 
 @pytest.mark.parametrize("name", ["GridSearch", "HillClimbing"])
 def test_settings_refuse_matchers_not_ported(name):
-    with pytest.raises(NotImplementedError, match="1.15"):
-        psettings.create_scan_matcher_from_group(
-            {}, name, "G", resolution=0.05, n_theta_max=64, crop=256,
-            device="cpu")
+    """Both matchers build from an empty group with the JAX loader's
+    defaults (nothing is refused any more)."""
+    kw = dict(resolution=0.05, n_theta_max=64, crop=256)
+    got = psettings.create_scan_matcher_from_group({}, name, "G",
+                                                   device="cpu", **kw)
+    want = jsettings.create_scan_matcher_from_group({}, name, "G", **kw)
+    assert _fields(got.cfg) == _fields(want.cfg)
+    assert got.device == torch.device("cpu")
 
 
 # ---- map saver ------------------------------------------------------------

@@ -2,8 +2,10 @@
 interpreter with both imports blocked imports the port, runs a small
 frontend through the factory with the branch-and-bound loop backend, one
 branch-and-bound loop match, one batched correlative detection (the
-default backend's) and one pose-graph solve, imports the launcher and its
-modules and builds a system from settings, and ends with neither loaded;
+default backend's), one grid-search and one hill-climbing match, a
+counting-grid update and one pose-graph solve, imports the launcher and
+its modules, builds a system from settings and reads a Carmen log with the
+native parser, and ends with neither loaded;
 and no source of the port, nor its scripts, has an import statement for
 either."""
 import ast
@@ -102,6 +104,26 @@ batched = create_default_backend(device="cpu", beam_capacity=128,
 batched.detect([q])
 assert batched.host_fetches == 1, "the batched detector did not run"
 
+import numpy as np
+from my_lidar_graph_slam_v2_tpu_torch.grid import geometry
+from my_lidar_graph_slam_v2_tpu_torch.grid.counted import GridCounted
+from my_lidar_graph_slam_v2_tpu_torch.loop.detector import scan_to_arrays
+from my_lidar_graph_slam_v2_tpu_torch.matching.types import ScanMatchingQuery
+from my_lidar_graph_slam_v2_tpu_torch.utils import oracle
+
+gs = create_scan_matcher("GridSearch", device="cpu", range_x=0.3,
+                         range_y=0.3, range_theta=0.1, step_theta=0.02,
+                         crop_rows=96, crop_cols=96)
+hc = create_scan_matcher("HillClimbing", device="cpu")
+raster = detector.map_cache.raster(slam.builder.local_map_at(0))
+arrays = scan_to_arrays(node.scan_data, 128, "cpu")
+for m in (gs, hc):
+    m.optimize_pose(ScanMatchingQuery(raster, arrays, np.zeros(3)))
+assert gs.host_fetches == 1 and hc.matches == 1
+counted = GridCounted(8, 8, "cpu")
+counted.update([1, 2, 9], [3, 4, 0], [True, False, True])
+assert int(counted.counts.sum()) == 2
+
 from my_lidar_graph_slam_v2_tpu_torch.config import settings
 from my_lidar_graph_slam_v2_tpu_torch.io import carmen, graph_plot, map_saver
 from my_lidar_graph_slam_v2_tpu_torch.network import slam_client
@@ -109,6 +131,10 @@ from my_lidar_graph_slam_v2_tpu_torch.pipeline import checkpoint, launcher
 
 settings.create_slam_from_settings({}, map_rows=128, map_cols=128,
                                    n_theta_max=16, crop=96, device="cpu")
+import tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    carmen.write_carmen_log(seq.scans[:3], tmp + "/s.log")
+    assert len(carmen.read_carmen_log(tmp + "/s.log", native=True)) == 3
 assert not [m for m in sys.modules if _blocked(m)]
 print("ok", slam.process_count)
 """
