@@ -68,9 +68,24 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
     ``create_slam_from_settings`` with the HillClimbing matcher and its
     reference cost, GreedyEndpoint, and the Empty loop detector, on the
     card and on the CPU: the same keyframes, bitwise-equal finite poses,
-    no sweep launch; prints ms, climbing iterations and fetches per
-    keyframe and the ATE beside odometry's.
-11. Prints the kernel summary line (every number of it measured or, for
+    no sweep launch, ATE below odometry's; prints ms, climbing iterations
+    and fetches per keyframe and the ATE beside odometry's.
+11. The multi-device layer on config #3's world at the factory defaults,
+    against phase 7's run in this process: (a) ``create_distributed_backend``
+    on a one-device mesh, on the card and on the CPU; (b)
+    ``create_multihost_backend`` in this process in an NCCL group of one
+    rank, and on the CPU in a gloo group of one rank; each with phase 7's
+    keyframes and loop edges, CUDA poses bitwise equal to the CPU's,
+    poses within ``DIST_TOL`` of phase 7's, two sweep launches per
+    ``detect`` plus two per dense re-run, and the LM's ms per call beside
+    phase 7's; (c) two ``parallel/worker.py`` processes (gloo) on the one
+    card: both trajectories bitwise equal, phase 7's keyframes and loop
+    edges, ATE within 0.005 m of phase 7's, each rank's rasterized maps
+    its own, the owner-retention invariants, and both ranks' sharded
+    global maps with the observed cells of (a)'s run's map built in one
+    process; prints each rank's wall time, sweep launches and collectives
+    per backend step.
+12. Prints the kernel summary line (every number of it measured or, for
    ``bound_ms``, computed in this run), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -553,15 +568,13 @@ def check_hit_kernel(device):
 def build_loop_sequence(seed: int = 11, laps: float = 1.3):
     """The world of ``scripts/eval_ate.py``'s config #3: a 12 m office,
     1.3 laps at 8 cm steps, 181 beams to 12 m, odometry noise
-    (0.05, 0.02)."""
-    from my_lidar_graph_slam_v2_tpu_torch.datasets import synthetic
-
-    world = synthetic.World.office(seed=seed, size=12.0)
-    traj = synthetic.loop_trajectory(size=12.0, laps=laps, step=0.08)
-    return synthetic.generate(
-        world, traj, n_beams=181, max_range=12.0, range_noise=0.01,
-        odom_noise=(0.05, 0.02), seed=seed + 1,
+    (0.05, 0.02); the world the multi-process worker runs with ``--world
+    config3``."""
+    from my_lidar_graph_slam_v2_tpu_torch.parallel.worker import (
+        config3_sequence,
     )
+
+    return config3_sequence(seed, laps)
 
 
 def loop_slam(device, **factory_kw):
@@ -739,7 +752,7 @@ def run_loop_slice(device, seq, *, stages=(), make_slam=loop_slam, count=None,
     detector = slam.backend.loop_detector
     matcher = getattr(detector, "scan_matcher", detector)
     return dict(
-        est=slam.get_trajectory(), gt=np.asarray(gt), wall=wall,
+        est=slam.get_trajectory(), gt=np.asarray(gt), wall=wall, slam=slam,
         loops=[(e.local_map_node_id, e.scan_node_id)
                for e in slam.pose_graph.edges if e.is_loop],
         matcher=matcher, matches=getattr(matcher, "matches", None),
@@ -920,8 +933,8 @@ def _logged_detects(calls):
     """A ``stages`` hook for :func:`run_loop_slice` that records, per call
     of the batched detector's ``detect``, the batch size, the sweep
     launches and dense re-runs it made and its host ms (the result fetch
-    synchronizes, so nothing is fenced); the backend step is timed as a
-    stage."""
+    synchronizes, so nothing is fenced); the backend step and the LM (one
+    fetch per call) are timed as stages."""
     from my_lidar_graph_slam_v2_tpu_torch.ops import csm_cuda
 
     def stages(slam):
@@ -939,7 +952,8 @@ def _logged_detects(calls):
             return out
 
         det.detect = logged
-        return [(slam.backend, "run_step", "backend step", False)]
+        return [(slam.backend, "run_step", "backend step", False),
+                (slam.backend.optimizer, "optimize", "LM", False)]
 
     return stages
 
@@ -994,6 +1008,7 @@ def check_batched_loop_slice(device, serial):
         if batches else None,
         backend_steps=steps[0],
         backend_step_ms_median=statistics.median(steps[1]),
+        lm_ms_median=_median_ms(gpu["stages"], "LM"),
         serial_backend_step_ms_median=serial["backend_step_ms_median"],
         serial_loop_match_ms_median=serial["loop_match_ms_median"],
         wall_s=gpu["wall"], cpu_wall_s=cpu["wall"],
@@ -1017,7 +1032,12 @@ def check_batched_loop_slice(device, serial):
             f"{d[:, 2].max()}")
     if not np.all(np.isfinite(gpu["est"])) or not ate < ate_odom:
         raise AssertionError(f"ATE {ate} does not beat odometry {ate_odom}")
-    return stats
+    return stats, gpu
+
+
+def _median_ms(stages, name):
+    """Median host ms per call of a timed stage; None if it never ran."""
+    return statistics.median(stages[name][1]) if name in stages else None
 
 
 # The launcher's settings in phase 8: config #3's searcher, and both
@@ -1280,10 +1300,271 @@ def check_hill_climbing_frontend(device):
         raise AssertionError(
             f"cuda and cpu poses differ: dxy {d[:, :2].max()}, dtheta "
             f"{d[:, 2].max()}")
-    if not np.all(np.isfinite(gpu["est"])):
-        raise AssertionError("non-finite poses")
+    if not np.all(np.isfinite(gpu["est"])) or not stats["ate_m"] < \
+            stats["ate_odom_m"]:
+        raise AssertionError(
+            f"ATE {stats['ate_m']} does not beat odometry "
+            f"{stats['ate_odom_m']}")
     if launches != 0:
         raise AssertionError(f"{launches} sweep launches without a sweep")
+    return stats
+
+
+# Phase 11: the multi-device paths' poses against phase 7's, fixed before
+# the first chip run.  A one-shard mesh sums the LM in the single-device
+# order and two ranks' f64 sums differ from one rank's only in order, far
+# below the f32 rounding (bitwise in the CPU tests), so bitwise is
+# expected; 1e-4 m / rad would let a last-bit flip after a loop closure
+# pass without hiding a wrong sum.
+DIST_TOL = 1e-4
+# Phase 11c: the two-rank run's ATE within this of phase 7's.
+DIST_ATE_TOL = 0.005
+# Phase 11c: seconds each worker may take.
+WORKER_TIMEOUT_S = 300
+LOOP_SEARCHER = dict(travel_dist_threshold=6.0)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def distributed_loop_slam(device, **factory_kw):
+    """``create_default_slam`` with ``create_distributed_backend`` on the
+    one-device mesh ``(device,)``: config #3's searcher, the factory's
+    defaults (crop 448, T 208, 512 beams, 2.5 m x 2.5 m x 0.5 rad), inline."""
+    from my_lidar_graph_slam_v2_tpu_torch.pipeline.factory import (
+        create_default_slam,
+        create_distributed_backend,
+    )
+
+    backend = create_distributed_backend([device],
+                                         searcher_overrides=LOOP_SEARCHER)
+    return create_default_slam(device=device, backend=backend, **factory_kw)
+
+
+def multihost_loop_slam(device, **factory_kw):
+    """``create_default_slam`` with ``create_multihost_backend`` on
+    ``(device,)`` in the process group this process has joined, at the
+    same settings as :func:`distributed_loop_slam`."""
+    from my_lidar_graph_slam_v2_tpu_torch.parallel.multihost import (
+        create_multihost_backend,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.pipeline.factory import (
+        create_default_slam,
+    )
+
+    backend = create_multihost_backend([device],
+                                       searcher_overrides=LOOP_SEARCHER)
+    return create_default_slam(device=device, backend=backend, **factory_kw)
+
+
+def _counted_loop_run(device, seq, make_slam):
+    """One run of a loop slice on the card, the kernel counts set to 0
+    just before it and read just after, with each ``detect`` logged and
+    the backend step and the LM timed (:func:`_logged_detects`)."""
+    from my_lidar_graph_slam_v2_tpu_torch.ops import csm_cuda, hit_images_cuda
+
+    calls = []
+    csm_cuda.LAUNCHES = hit_images_cuda.LAUNCHES = 0
+    run = run_loop_slice(device, seq, stages=_logged_detects(calls),
+                         make_slam=make_slam)
+    run.update(calls=calls, sweep_launches=csm_cuda.LAUNCHES,
+               hit_launches=hit_images_cuda.LAUNCHES)
+    return run
+
+
+def _check_against_phase7(name, gpu, cpu, ref, ref_stats):
+    """Phase 11a / 11b: the card's run ``gpu`` against the CPU's ``cpu``
+    (bitwise) and phase 7's ``ref`` (``DIST_TOL``); two sweep launches per
+    ``detect`` plus two per dense re-run."""
+    from my_lidar_graph_slam_v2_tpu_torch.datasets import synthetic
+
+    batches = [c for c in gpu["calls"] if c["n"]]
+    n_kf = len(gpu["est"])
+    same = len(ref["est"]) == n_kf
+    d = np.abs(gpu["est"] - ref["est"]) if same else None
+    steps = gpu["stages"].get("backend step", (0, [0.0], 0))
+    stats = dict(
+        keyframes=n_kf, keyframes_cpu=len(cpu["est"]),
+        keyframes_phase7=len(ref["est"]),
+        loop_edges=len(gpu["loops"]), loop_edges_phase7=len(ref["loops"]),
+        ate_m=synthetic.ate_rmse(gpu["est"], gpu["gt"]),
+        ate_cpu_m=synthetic.ate_rmse(cpu["est"], cpu["gt"]),
+        ate_phase7_m=ref_stats["ate_m"],
+        poses_bitwise_equal=(len(cpu["est"]) == n_kf
+                             and np.array_equal(gpu["est"], cpu["est"])),
+        poses_bitwise_equal_phase7=same and np.array_equal(gpu["est"],
+                                                           ref["est"]),
+        max_dxy_vs_phase7_m=None if d is None else float(d[:, :2].max()),
+        max_dtheta_vs_phase7_rad=None if d is None else float(d[:, 2].max()),
+        detects=len(batches), candidates=sum(c["n"] for c in batches),
+        dense_reruns=sum(c["reruns"] for c in batches),
+        csm_sweep_launches=gpu["sweep_launches"],
+        hit_image_launches=gpu["hit_launches"],
+        detect_sweep_launches=sum(c["launches"] for c in batches),
+        sweep_launches_per_detect=sum(c["launches"] for c in batches)
+        / max(len(batches), 1),
+        host_fetches=gpu["fetches"],
+        detect_ms_median=statistics.median(c["ms"] for c in batches)
+        if batches else None,
+        backend_steps=steps[0],
+        backend_step_ms_median=statistics.median(steps[1]),
+        lm_calls=gpu["stages"].get("LM", (0,))[0],
+        lm_ms_median=_median_ms(gpu["stages"], "LM"),
+        lm_ms_median_phase7=ref_stats["lm_ms_median"],
+        wall_s=gpu["wall"], cpu_wall_s=cpu["wall"],
+    )
+    ranks = getattr(gpu["matcher"], "ranks", None)
+    if ranks is not None:
+        stats.update(collectives=ranks.calls,
+                     collectives_per_backend_step=ranks.calls
+                     / max(steps[0], 1))
+    print(f"{name} {json.dumps(stats)}", flush=True)
+    if not batches:
+        raise AssertionError(f"{name}: no batched detect ran")
+    wrong = [c for c in batches if c["launches"] != 2 + 2 * c["reruns"]]
+    if wrong:
+        raise AssertionError(f"{name}: detects off two launches: {wrong}")
+    if not same or len(cpu["est"]) != n_kf:
+        raise AssertionError(
+            f"{name}: keyframes {n_kf}, cpu {len(cpu['est'])}, phase 7 "
+            f"{len(ref['est'])}")
+    if not gpu["loops"] == cpu["loops"] == ref["loops"]:
+        raise AssertionError(
+            f"{name}: loop edges {gpu['loops']}, cpu {cpu['loops']}, phase 7 "
+            f"{ref['loops']}")
+    if not stats["poses_bitwise_equal"]:
+        dc = np.abs(gpu["est"] - cpu["est"])
+        raise AssertionError(
+            f"{name}: cuda and cpu poses differ: dxy {dc[:, :2].max()}, "
+            f"dtheta {dc[:, 2].max()}")
+    if d.max() > DIST_TOL or not np.all(np.isfinite(gpu["est"])):
+        raise AssertionError(
+            f"{name}: poses differ from phase 7's by {d.max()} "
+            f"(tol {DIST_TOL})")
+    return stats
+
+
+def check_distributed_loop_slice(device, ref, ref_stats):
+    """Phase 11a: ``create_distributed_backend`` on the one-device mesh
+    ``(cuda:0,)`` and on ``("cpu",)``, against phase 7's run."""
+    seq = build_loop_sequence()
+    gpu = _counted_loop_run(device, seq, distributed_loop_slam)
+    cpu = run_loop_slice("cpu", seq, make_slam=distributed_loop_slam)
+    return (_check_against_phase7("distributed_loop_slice", gpu, cpu, ref,
+                                  ref_stats), gpu)
+
+
+def check_multihost_loop_slice(device, ref, ref_stats):
+    """Phase 11b: ``create_multihost_backend`` in this process, on the card
+    in an NCCL group of one rank (the only NCCL group one card can hold)
+    and on the CPU in a gloo group of one rank, each group destroyed after
+    its run, against phase 7's run."""
+    import torch.distributed as dist
+
+    from my_lidar_graph_slam_v2_tpu_torch.parallel import multihost
+
+    seq = build_loop_sequence()
+    runs = {}
+    for backend, dev in (("nccl", device), ("gloo", torch.device("cpu"))):
+        multihost.init_multihost(f"tcp://localhost:{_free_port()}", 1, 0,
+                                 backend=backend)
+        try:
+            runs[backend] = (
+                _counted_loop_run(dev, seq, multihost_loop_slam)
+                if dev.type == "cuda"
+                else run_loop_slice(dev, seq, make_slam=multihost_loop_slam))
+        finally:
+            dist.destroy_process_group()
+    return _check_against_phase7("multihost_loop_slice", runs["nccl"],
+                                 runs["gloo"], ref, ref_stats)
+
+
+def check_two_ranks(device, ref, ref_stats, one_process_slam):
+    """Phase 11c: two ``parallel/worker.py`` processes (gloo, both on
+    ``device``, config #3's world at the factory defaults), started with
+    ``subprocess`` and both killed on failure; against phase 7's run and
+    the owner-sharded global map of ``one_process_slam`` (phase 11a's run)
+    built in this one process."""
+    import os
+    from pathlib import Path
+
+    from my_lidar_graph_slam_v2_tpu_torch.parallel.multihost import (
+        construct_global_map_sharded,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.parallel.worker import (
+        check_owner_sharded,
+    )
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "my_lidar_graph_slam_v2_tpu_torch.parallel.worker",
+         "--init-method", f"tcp://localhost:{port}", "--world-size", "2",
+         "--rank", str(rank), "--backend", "gloo", "--device", str(device),
+         "--world", "config3"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root,
+        env=env) for rank in (0, 1)]
+    t0 = time.perf_counter()
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=WORKER_TIMEOUT_S)
+            if p.returncode != 0:
+                raise AssertionError(
+                    f"a worker exited {p.returncode}:\n{err[-3000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    r0, r1 = outs
+    _, gmap = construct_global_map_sharded(one_process_slam)
+    one_cells = int(gmap.observed.sum())
+    t0_, t1_ = (np.array(r["trajectory"]) for r in (r0, r1))
+    loops = [[tuple(e) for e in r["loop_edges"]] for r in (r0, r1)]
+    keep = lambda r: {k: v for k, v in r.items()  # noqa: E731
+                      if k not in ("trajectory", "loop_edges")}
+    stats = dict(
+        ranks=[keep(r) for r in (r0, r1)], command_wall_s=wall,
+        lockstep_bitwise=t0_.shape == t1_.shape and np.array_equal(t0_, t1_),
+        poses_bitwise_equal_phase7=t0_.shape == ref["est"].shape
+        and np.array_equal(t0_, ref["est"]),
+        keyframes_phase7=len(ref["est"]), loop_edges_phase7=len(ref["loops"]),
+        ate_phase7_m=ref_stats["ate_m"],
+        one_process_global_map_observed_cells=one_cells,
+    )
+    print(f"two_rank_loop_slice {json.dumps(stats)}", flush=True)
+    if not stats["lockstep_bitwise"] or loops[0] != loops[1]:
+        raise AssertionError("the two ranks' trajectories differ")
+    if r0["keyframes"] != len(ref["est"]) or loops[0] != ref["loops"]:
+        raise AssertionError(
+            f"keyframes {r0['keyframes']}, loop edges {loops[0]}; phase 7: "
+            f"{len(ref['est'])}, {ref['loops']}")
+    if abs(r0["ate"] - ref_stats["ate_m"]) > DIST_ATE_TOL:
+        raise AssertionError(
+            f"ATE {r0['ate']} against phase 7's {ref_stats['ate_m']}")
+    for r in (r0, r1):
+        foreign = [m for m in r["rasterized_map_ids"]
+                   if m % 2 != r["process_id"]]
+        if foreign:
+            raise AssertionError(
+                f"rank {r['process_id']} rasterized non-owned maps {foreign}")
+    if not r0["detect_sweep_launches"] + r1["detect_sweep_launches"]:
+        raise AssertionError("no rank launched a loop sweep")
+    check_owner_sharded(r0, r1)
+    if not (r0["global_map_observed_cells"] == r1["global_map_observed_cells"]
+            == one_cells > 0):
+        raise AssertionError(
+            f"global map observed cells {r0['global_map_observed_cells']}, "
+            f"{r1['global_map_observed_cells']}; one process {one_cells}")
     return stats
 
 
@@ -1324,10 +1605,13 @@ def main() -> int:
     _, frontend_launches = check_slice(device)
     loop = check_loop_slice(device)
     corr = check_correlative_loop_slice(device)
-    batched = check_batched_loop_slice(device, corr)
+    batched, phase7 = check_batched_loop_slice(device, corr)
     cli = check_launcher(device, batched["keyframes"])
     grid = check_grid_search_loop_slice(device)
     hill = check_hill_climbing_frontend(device)
+    dist, dist_run = check_distributed_loop_slice(device, phase7, batched)
+    nccl = check_multihost_loop_slice(device, phase7, batched)
+    two = check_two_ranks(device, phase7, batched, dist_run["slam"])
 
     # Top-level times: the frontend's two sweeps of a keyframe (coarse +
     # fine) and branch-and-bound's hit images; every shape is in "shapes".
@@ -1349,7 +1633,11 @@ def main() -> int:
                 batched_loop=batched["csm_sweep_launches"],
                 launcher=cli["csm_sweep_launches"],
                 grid_search_loop=grid["csm_sweep_launches"],
-                hill_climbing_frontend=hill["csm_sweep_launches"]),
+                hill_climbing_frontend=hill["csm_sweep_launches"],
+                distributed_loop=dist["csm_sweep_launches"],
+                multihost_loop=nccl["csm_sweep_launches"],
+                multihost_two_ranks=[r["csm_sweep_launches"]
+                                     for r in two["ranks"]]),
             max_abs_err=max(r["max_abs_err"] for r in shapes),
             **_kernel_line(frontend),
             shapes=shapes,

@@ -7,7 +7,9 @@ scan node's pose in the map node's frame; robust IRLS weights on loop
 edges only; the gauge fixed by hard elimination of the first map node;
 lambda halved on an accepted step and doubled on a rejected one, and kept
 across calls.  The normal equations are solved either densely or by the
-Schur complement over the scan nodes (the default).
+Schur complement over the scan nodes (the default), whose sums run over
+edge shards: one here, one per mesh device and rank in
+``parallel/distributed.py``.
 
 The JAX package pads every shape to a power-of-two bucket so XLA compiles
 O(log E) programs; eager PyTorch compiles nothing, so the shapes here are
@@ -156,42 +158,6 @@ def _segment_sum(x, idx, n):
     return out.index_add_(0, idx, x)
 
 
-def _solve_schur(n_maps, n_scans, Hss, Hee, Hse, bs, be, map_idx, scan_idx,
-                 pair_e1, pair_e2, lam):
-    """Schur-complement solve: eliminate the scan nodes (each edge touches
-    exactly one), solve the reduced map-node system, back-substitute.
-    ``pair_e1/pair_e2`` list the ordered pairs of edges that share a scan
-    node, diagonal pairs included; they give the reduced system's fill-in."""
-    dev, dt = Hss.device, Hss.dtype
-    eye = torch.eye(3, dtype=dt, device=dev)
-    Hee_n = _segment_sum(Hee, scan_idx, n_scans) + lam * eye
-    be_n = _segment_sum(be, scan_idx, n_scans)
-    Hee_inv = devmath.inv(Hee_n)
-
-    W = Hse @ Hee_inv[scan_idx]
-    bm = _segment_sum(bs, map_idx, n_maps)
-    bm_red = bm - _segment_sum(
-        (W @ be_n[scan_idx][:, :, None])[:, :, 0], map_idx, n_maps
-    )
-
-    nv = 3 * n_maps
-    Hm = torch.zeros((nv, nv), dtype=dt, device=dev)
-    Hm.index_put_(_block_index(map_idx, map_idx), Hss, accumulate=True)
-    fill = -(W[pair_e1] @ Hse[pair_e2].transpose(1, 2))
-    Hm.index_put_(_block_index(map_idx[pair_e1], map_idx[pair_e2]), fill,
-                  accumulate=True)
-    Hm = Hm + lam * torch.eye(nv, dtype=dt, device=dev)
-    Hm, bm_flat = _fix_gauge(Hm, bm_red.reshape(-1))
-    dpm = _solve_pos(Hm, bm_flat).reshape(n_maps, 3)
-    # dps_j = Hee_j^-1 (be_j - sum_{e: scan_e = j} Hse_e^T dpm(map_e))
-    cross = _segment_sum(
-        (Hse.transpose(1, 2) @ dpm[map_idx][:, :, None])[:, :, 0],
-        scan_idx, n_scans,
-    )
-    dps = (Hee_inv @ (be_n - cross)[:, :, None])[:, :, 0]
-    return dpm, dps
-
-
 def schur_pairs(scan_idx: np.ndarray):
     """Ordered pairs ``(a, b)`` of edges sharing a scan node, ``a == b``
     included: for each scan node of degree k, its k^2 pairs.  Vectorized
@@ -207,41 +173,142 @@ def schur_pairs(scan_idx: np.ndarray):
     return a, b
 
 
+@dataclass
+class EdgeShard:
+    """Edges on one device: indices i64 (``is_loop`` i32), relative poses
+    and information f64, and the Schur pairs of the shard's own edges."""
+
+    device: torch.device
+    map_idx: torch.Tensor
+    scan_idx: torch.Tensor
+    is_loop: torch.Tensor
+    rel: torch.Tensor
+    info: torch.Tensor
+    pair_e1: torch.Tensor
+    pair_e2: torch.Tensor
+
+    @classmethod
+    def upload(cls, device, map_idx, scan_idx, is_loop, rel, info):
+        """The shard of these edges (NumPy arrays, rel and info taken as
+        f32, as the JAX package takes them) on ``device``."""
+        p1, p2 = schur_pairs(scan_idx)
+        return cls(
+            device,
+            to_device(map_idx, device, np.int64),
+            to_device(scan_idx, device, np.int64),
+            to_device(is_loop, device, np.int32),
+            to_device(rel, device, np.float32).to(torch.float64),
+            to_device(info, device, np.float32).to(torch.float64),
+            to_device(p1, device, np.int64),
+            to_device(p2, device, np.int64),
+        )
+
+
+def _shard_sum(parts, shapes, home, reduce):
+    """The sum of per-shard partials (a tuple of f64 tensors per shard, in
+    shard order) on ``home``: a lone shard's partials as they are, several
+    added in shard order, none zeros of ``shapes``; then ``reduce`` (the
+    sum over ranks, ``parallel/distributed.py:RankSum.sum``) if given."""
+    if parts:
+        out = [p.to(home) for p in parts[0]]
+        for part in parts[1:]:
+            out = [o + p.to(home) for o, p in zip(out, part)]
+    else:
+        out = [torch.zeros(s, dtype=torch.float64, device=home) for s in shapes]
+    return reduce(out) if reduce is not None else out
+
+
+def schur_step(n_maps, n_scans, mp, sp, shards, lam, loss, reduce=None):
+    """One Schur-complement LM step: eliminate the scan nodes (each edge
+    touches exactly one), solve the reduced map-node system, back-substitute.
+    Each shard forms its partial system on its device; the partials are
+    summed (:func:`_shard_sum`) where the JAX package's distributed step
+    has its five ``psum``s, so the edges of one scan node must share a
+    shard.  A shard's Schur pairs give its fill-in.  Returns (dpm, dps) on
+    ``mp``'s device."""
+    home, dt = mp.device, mp.dtype
+    blocks = [
+        _edge_blocks(mp.to(s.device), sp.to(s.device), s.map_idx, s.scan_idx,
+                     s.rel, s.info, s.is_loop, loss)
+        for s in shards
+    ]
+    # psum 1 and 2: the per-scan diagonal blocks and right-hand sides
+    Hee_n, be_n = _shard_sum(
+        [(_segment_sum(Hee, s.scan_idx, n_scans),
+          _segment_sum(be, s.scan_idx, n_scans))
+         for s, (_, Hee, _, _, be) in zip(shards, blocks)],
+        [(n_scans, 3, 3), (n_scans, 3)], home, reduce)
+    Hee_n = Hee_n + lam * torch.eye(3, dtype=dt, device=home)
+    Hee_inv = devmath.inv(Hee_n)
+
+    # psum 3 and 4: the reduced right-hand side and matrix
+    nv = 3 * n_maps
+    parts = []
+    for s, (Hss, _, Hse, bs, _) in zip(shards, blocks):
+        W = Hse @ Hee_inv.to(s.device)[s.scan_idx]
+        bm_red = _segment_sum(bs, s.map_idx, n_maps) - _segment_sum(
+            (W @ be_n.to(s.device)[s.scan_idx][:, :, None])[:, :, 0],
+            s.map_idx, n_maps)
+        Hm = torch.zeros((nv, nv), dtype=dt, device=s.device)
+        Hm.index_put_(_block_index(s.map_idx, s.map_idx), Hss,
+                      accumulate=True)
+        fill = -(W[s.pair_e1] @ Hse[s.pair_e2].transpose(1, 2))
+        Hm.index_put_(_block_index(s.map_idx[s.pair_e1],
+                                   s.map_idx[s.pair_e2]), fill,
+                      accumulate=True)
+        parts.append((bm_red, Hm))
+    bm_red, Hm = _shard_sum(parts, [(n_maps, 3), (nv, nv)], home, reduce)
+    Hm = Hm + lam * torch.eye(nv, dtype=dt, device=home)
+    Hm, bm_flat = _fix_gauge(Hm, bm_red.reshape(-1))
+    dpm = _solve_pos(Hm, bm_flat).reshape(n_maps, 3)
+
+    # psum 5: dps_j = Hee_j^-1 (be_j - sum_{e: scan_e = j} Hse_e^T dpm(map_e))
+    (cross,) = _shard_sum(
+        [(_segment_sum(
+            (Hse.transpose(1, 2) @ dpm.to(s.device)[s.map_idx][:, :, None])
+            [:, :, 0], s.scan_idx, n_scans),)
+         for s, (_, _, Hse, _, _) in zip(shards, blocks)],
+        [(n_scans, 3)], home, reduce)
+    dps = (Hee_inv @ (be_n - cross)[:, :, None])[:, :, 0]
+    return dpm, dps
+
+
 def optimize_core(cfg: OptimizerConfig, n_maps, n_scans, map_poses,
-                  scan_poses, map_idx, scan_idx, is_loop, rel, info, pair_e1,
-                  pair_e2, lam0):
+                  scan_poses, shards, lam0, reduce=None):
     """Port of ``_optimize_core``: ``num_iterations_max`` masked LM steps
-    in f64; returns (map poses, scan poses, error, lambda, iterations,
-    initial error) as device tensors, the poses and errors rounded to f32."""
+    in f64 over the edge ``shards``, the dense solve (one shard) or
+    :func:`schur_step`, every sum over shards then ranks (``reduce``).
+    Returns (map poses, scan poses, error, lambda, iterations, initial
+    error) as device tensors, the poses and errors rounded to f32."""
     loss = cfg.loss
     dev = map_poses.device
-    map_poses, scan_poses, rel, info = (
-        a.to(torch.float64) for a in (map_poses, scan_poses, rel, info)
-    )
+    mp, sp = map_poses.to(torch.float64), scan_poses.to(torch.float64)
 
     def total(mp, sp):
         # The f32 error, as the JAX package compares it: rounding the f64
         # sum also removes its device-dependent last bits, so accept and
         # stop decide the same on every device.
-        return _total_error(mp, sp, map_idx, scan_idx, rel, info,
-                            loss).to(torch.float32)
+        (err,) = _shard_sum(
+            [(_total_error(mp.to(s.device), sp.to(s.device), s.map_idx,
+                           s.scan_idx, s.rel, s.info, loss),)
+             for s in shards], [()], dev, reduce)
+        return err.to(torch.float32)
 
-    mp, sp = map_poses, scan_poses
+    def step(mp, sp, lam):
+        if cfg.solver == "dense":
+            (s,) = shards
+            return _solve_dense(n_maps, n_scans, *_edge_blocks(
+                mp, sp, s.map_idx, s.scan_idx, s.rel, s.info, s.is_loop,
+                loss), s.map_idx, s.scan_idx, lam)
+        return schur_step(n_maps, n_scans, mp, sp, shards, lam, loss, reduce)
+
     err = total(mp, sp)
     init_err = err
     lam = torch.full((), lam0, dtype=torch.float64, device=dev)
     it = torch.zeros((), dtype=torch.int32, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     for _ in range(cfg.num_iterations_max):
-        Hss, Hee, Hse, bs, be = _edge_blocks(
-            mp, sp, map_idx, scan_idx, rel, info, is_loop, loss
-        )
-        if cfg.solver == "dense":
-            dpm, dps = _solve_dense(n_maps, n_scans, Hss, Hee, Hse, bs, be,
-                                    map_idx, scan_idx, lam)
-        else:
-            dpm, dps = _solve_schur(n_maps, n_scans, Hss, Hee, Hse, bs, be,
-                                    map_idx, scan_idx, pair_e1, pair_e2, lam)
+        dpm, dps = step(mp, sp, lam)
         mp2, sp2 = mp + dpm, sp + dps
         err2 = total(mp2, sp2)
         # LM accept/reject (pose_graph_optimizer_lm.cpp:88-94); a NaN
@@ -264,57 +331,58 @@ def optimize_core(cfg: OptimizerConfig, n_maps, n_scans, map_poses,
 
 
 class PoseGraphOptimizer:
-    """Host wrapper: clips edge information, enumerates the Schur pairs,
-    and keeps the persistent lambda (the reference keeps ``mLambda``
-    across Optimize() calls)."""
+    """Host wrapper: clips edge information, puts the edges on the device
+    as one shard, and keeps the persistent lambda (the reference keeps
+    ``mLambda`` across Optimize() calls).  The distributed LM
+    (``parallel/distributed.py``) changes only the shards, the sum over
+    ranks, the clip and the metric series."""
+
+    # The reference's series (pose_graph_optimizer_lm.cpp:17-35)
+    SERIES = ("NumOfIterations", "InitialError", "FinalError",
+              "NumOfLocalMapNodes", "NumOfScanNodes", "NumOfEdges")
 
     def __init__(self, cfg: OptimizerConfig = OptimizerConfig(), *, device):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.info_clip = cfg.info_clip
+        self.reduce = None
         self.lam = cfg.initial_lambda
         vs = MetricManager.instance().value_sequence
-        pre = "PoseGraphOptimizerLM."
-        self._m = {
-            n: vs(pre + n)
-            for n in ("NumOfIterations", "InitialError", "FinalError",
-                      "NumOfLocalMapNodes", "NumOfScanNodes", "NumOfEdges")
-        }
+        self._m = {n: vs("PoseGraphOptimizerLM." + n) for n in self.SERIES}
+
+    def _shards(self, map_idx, scan_idx, is_loop, rel, info):
+        """The edges this process evaluates, as shards on their devices."""
+        return [EdgeShard.upload(self.device, map_idx, scan_idx, is_loop,
+                                 rel, info)]
 
     def optimize(self, map_poses, scan_poses, edges):
         """edges = (map_idx, scan_idx, is_loop, rel, info) as NumPy arrays.
         Returns (map_poses, scan_poses, stats dict)."""
-        map_idx, scan_idx, is_loop, rel, info = edges
+        map_idx, scan_idx, is_loop, rel, info = (np.asarray(a) for a in edges)
         M, N, E = len(map_poses), len(scan_poses), len(map_idx)
         if E == 0:
             return map_poses, scan_poses, dict(iterations=0, error=0.0)
         info = np.array(info, np.float32)
         # Clip the information's spectral norm (see cfg.info_clip)
         norms = np.linalg.norm(info, ord=2, axis=(1, 2))
-        big = norms > self.cfg.info_clip
+        big = norms > self.info_clip
         if big.any():
-            info[big] *= (self.cfg.info_clip / norms[big])[:, None, None]
-        p1, p2 = schur_pairs(scan_idx)
+            info[big] *= (self.info_clip / norms[big])[:, None, None]
         dev = self.device
         mp, sp, err, lam, iters, init_err = fetch(optimize_core(
             self.cfg, M, N,
             to_device(map_poses, dev, np.float32),
             to_device(scan_poses, dev, np.float32),
-            to_device(map_idx, dev, np.int64),
-            to_device(scan_idx, dev, np.int64),
-            to_device(is_loop, dev, np.int32),
-            to_device(rel, dev, np.float32),
-            to_device(info, dev, np.float32),
-            to_device(p1, dev, np.int64),
-            to_device(p2, dev, np.int64),
-            float(np.float32(self.lam)),
+            self._shards(map_idx, scan_idx, is_loop, rel, info),
+            float(np.float32(self.lam)), self.reduce,
         ))
         self.lam = float(lam)
         stats = dict(iterations=int(iters), error=float(err),
                      initial_error=float(init_err))
-        self._m["NumOfIterations"].observe(stats["iterations"])
-        self._m["InitialError"].observe(stats["initial_error"])
-        self._m["FinalError"].observe(stats["error"])
-        self._m["NumOfLocalMapNodes"].observe(M)
-        self._m["NumOfScanNodes"].observe(N)
-        self._m["NumOfEdges"].observe(E)
+        observed = dict(NumOfIterations=stats["iterations"],
+                        InitialError=stats["initial_error"],
+                        FinalError=stats["error"], NumOfLocalMapNodes=M,
+                        NumOfScanNodes=N, NumOfEdges=E)
+        for name, series in self._m.items():
+            series.observe(observed[name])
         return mp, sp, stats

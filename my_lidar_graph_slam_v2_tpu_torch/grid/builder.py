@@ -15,7 +15,7 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -99,6 +99,35 @@ class LocalMap:
     compacted: bool = False
     # Pooled maps of the loop matchers, keyed by window
     coarse_cache: dict = field(default_factory=dict)
+    # Raster extent, kept as metadata after drop_heavy(): a process that
+    # does not own the map (parallel/multihost.py) holds ids, offset and
+    # extent only.
+    shape: Optional[tuple] = None
+    dropped: bool = False
+
+    def __post_init__(self):
+        if self.shape is None and self.observed is not None:
+            self.shape = tuple(self.observed.shape)
+
+    @property
+    def holds_raster(self) -> bool:
+        """True when this process can produce the map's raster (the f32
+        build raster or the compacted u8 form)."""
+        return self.logodds is not None or self.compacted
+
+    def drop_heavy(self):
+        """Release the device rasters and pooled maps, keeping ids, offset
+        and extent: the owner-retention policy of
+        ``parallel/multihost.py`` leaves a finished map's raster with its
+        owning process only."""
+        if self.observed is not None and self.shape is None:
+            self.shape = tuple(self.observed.shape)
+        self.logodds = None
+        self.observed = None
+        self.prob_q = None
+        self.compacted = False
+        self.coarse_cache.clear()
+        self.dropped = True
 
     def compact(self):
         """Replace the f32 build raster of a finished map with its u8
@@ -115,6 +144,11 @@ class LocalMap:
         f32 probabilities before."""
         if self.compacted:
             prob = self.prob_q
+        elif self.logodds is None:
+            raise RuntimeError(
+                f"local map {self.local_map_id}'s raster was dropped by the "
+                "owner-retention policy (another process owns it); route "
+                "the request to its owner")
         else:
             prob = rasterize.prob_map(self.logodds, self.observed)
         return MapRaster(prob, self.observed, resolution, self.offset_xy,

@@ -9,11 +9,12 @@ free; unknown cells are skipped; a beam with no admissible offset takes
 the default (worst) cost.  The covariance is the reference's numeric
 gradient ``g g^T + 0.1 I`` (lines 105-162).
 
-One deliberate difference (ROADMAP 3.9): the occupancy gate compares
-probabilities, so a u8 map is dequantized before it.  The JAX module
-compares the raw u8 levels with the threshold 0.1, which makes every
-non-zero level "occupied"; on ``dequant_prob`` of the same map the two
-agree.
+The occupancy gate reads the map as the JAX module does: on an f32 map
+it compares probabilities with the threshold; on a u8 map it compares the
+raw u8 levels, as f32, with the same threshold, so every non-zero level
+counts as "occupied" and only level 0 as "free" (ROADMAP 3.9 and 3.10:
+gating the dequantized probabilities instead lets the HillClimbing
+frontend drift ten times further than odometry).
 
 Poses ``[..., 3]`` and offsets ``[..., 2]`` may carry leading axes, one
 cost per pose (hill climbing scores its 6 moves in one call), with one
@@ -34,7 +35,6 @@ import torch
 
 from ..utils import devmath
 from ..utils.transfer import f32, to_device
-from .quant import dequant_prob
 
 
 def make_kernel_tables(kernel_size: int, resolution: float, std_dev: float,
@@ -79,7 +79,8 @@ def cost(prob, observed, ranges, angles, mask, sensor_pose, resolution,
     pulled = ranges - hit_and_missed_dist
     hr, hc = _cells(x0 + ranges * ca, y0 + ranges * sa, resolution, offset_xy)
     mr, mc = _cells(x0 + pulled * ca, y0 + pulled * sa, resolution, offset_xy)
-    probf = dequant_prob(prob).reshape(-1)
+    # u8 levels or f32 probabilities, gated against the same threshold
+    probf = prob.reshape(-1).to(torch.float32)
     obs = observed.reshape(-1)
 
     def read(r, c):  # cells [..., B, K] -> (prob, 0 where unknown; known)

@@ -1,12 +1,15 @@
 """Batched loop detection: all of a backend step's candidates in one
-batch on one GPU.
+batch per device.
 
-Port of ``my_lidar_graph_slam_v2_tpu/parallel/loop_sharded.py`` on one
-device (the JAX package's one-device mesh: one ``vmap`` of the
-correlative core, one dispatch and one fetch per step).  Here the batch is
+Port of ``my_lidar_graph_slam_v2_tpu/parallel/loop_sharded.py``.  On one
+device (the JAX package's one-device mesh: one ``vmap`` of the correlative
+core, one dispatch and one fetch per step) the batch is
 :func:`correlative_core_batch`: one coarse and one fine CSM sweep launch
-for every candidate of the step, one host fetch of the results.  A
-fan-out over several GPUs is ROADMAP item 1.16.
+for every candidate of the step, one host fetch of the results.  On a mesh
+(``parallel/mesh.py``) the step's candidates are split into contiguous
+chunks, one per device, each chunk one such batch on its device: the
+single-process counterpart of the JAX package's ``shard_map`` fan-out.
+The results come back in query order, in one fetch.
 
 The candidate count is not padded: the JAX package pads it to
 power-of-two buckets only to bound XLA recompiles, and eager PyTorch
@@ -21,7 +24,7 @@ import torch
 
 from ..core import pose as P
 from ..grid.map_cache import DeviceMapCache
-from ..loop.detector import scan_arrays_batch
+from ..loop.detector import scan_arrays_batch, scan_to_arrays
 from ..matching.correlative import (
     CorrelativeConfig,
     coarse_of,
@@ -53,10 +56,11 @@ def make_batched_loop_csm(cfg: CorrelativeConfig):
 
 
 class LoopDetectorShardedCorrelative:
-    """Drop-in loop detector running all candidates as one batch on
-    ``device``; the same matcher core as ``LoopDetectorCorrelative``.  The
-    final GN refinement runs per found candidate afterwards, like the
-    reference's final scan matcher.
+    """Drop-in loop detector running all candidates as one batch per
+    device of ``device``, a device or a mesh (a tuple or list of devices);
+    the same matcher core as ``LoopDetectorCorrelative``.  The final GN
+    refinement runs per found candidate afterwards, on the mesh's first
+    device, like the reference's final scan matcher.
 
     ``host_fetches`` counts device-to-host transfers (one per step, one
     more per dense re-run; the final matcher counts its own) and
@@ -68,25 +72,28 @@ class LoopDetectorShardedCorrelative:
         self.cfg = cfg
         self.mcfg = scan_matcher_cfg
         self.final = final_scan_matcher
-        self.device = torch.device(device)
+        self.mesh = (tuple(torch.device(d) for d in device)
+                     if isinstance(device, (tuple, list))
+                     else (torch.device(device),))
+        self.device = self.mesh[0]
         self.resolution = resolution
         self.map_cache = map_cache or DeviceMapCache(resolution)
         self._fn = make_batched_loop_csm(scan_matcher_cfg)
         self.host_fetches = 0
         self.dense_reruns = 0
-        # Bytes staged per detect() for the step's map stack: the distinct
+        # Bytes staged per detect() for the step's map stacks: the distinct
         # rasters' u8 prob and bool observed plus their coarse pair
-        # (M * h * w * 4 for M distinct maps).  The JAX package stages
-        # C * h * w * 2 for the C padded candidates and pools inside its
-        # jit, so the port stages less whenever the candidates fall in
+        # (M * h * w * 4 for M distinct maps of a chunk).  The JAX package
+        # stages C * h * w * 2 for the C padded candidates and pools inside
+        # its jit, so the port stages less whenever the candidates fall in
         # fewer than C / 2 maps.
         self._m_stack_bytes = MetricManager.instance().value_sequence(
             "LoopDetector.MapStackBytes"
         )
 
-    def detect(self, queries) -> List[dict]:
-        if not queries:
-            return []
+    def _launch(self, device, queries):
+        """Stage ``queries`` on ``device`` and launch their batch (no
+        sync); returns what the host fetch and the re-runs read."""
         slots, rasters = {}, []
         for q in queries:
             lm = q["local_map"]
@@ -94,15 +101,14 @@ class LoopDetectorShardedCorrelative:
                 slots[lm.local_map_id] = len(rasters)
                 rasters.append(self.map_cache.raster(lm))
         coarse = [coarse_of(r, self.mcfg.low_resolution) for r in rasters]
-        maps = [torch.stack(m) for m in (
+        maps = [torch.stack(m).to(device) for m in (
             [r.prob for r in rasters], [r.observed for r in rasters],
             [c[0] for c in coarse], [c[1] for c in coarse])]
-        self._m_stack_bytes.observe(sum(m.numel() * m.element_size()
-                                        for m in maps))
+        nbytes = sum(m.numel() * m.element_size() for m in maps)
 
         (ranges, angles, mask), arrays = scan_arrays_batch(
             [q["query_node"].scan_data for q in queries],
-            self.cfg.beam_capacity, self.device)
+            self.cfg.beam_capacity, device)
         index = [slots[q["local_map"].local_map_id] for q in queries]
         poses = np.stack([
             P.compound(P.inverse_compound(q["local_map_node"].global_pose,
@@ -110,42 +116,79 @@ class LoopDetectorShardedCorrelative:
                        a.rel_sensor_pose)
             for q, a in zip(queries, arrays)])
         offsets = np.stack([rasters[i].offset_xy for i in index])
-        poses_d = to_device(poses, self.device, np.float32)
-        offsets_d = to_device(offsets, self.device, np.float32)
-        thresholds = (float(np.float32(self.cfg.score_threshold)),
-                      float(np.float32(self.cfg.known_rate_threshold)))
+        poses_d = to_device(poses, device, np.float32)
+        offsets_d = to_device(offsets, device, np.float32)
         out = self._fn(*maps, ranges, angles, mask, poses_d, offsets_d,
-                       *thresholds, to_device(index, self.device, np.int64))
-        # One device-to-host fetch for the whole batch, of what the host
+                       *self._thresholds(), to_device(index, device, np.int64))
+        return dict(out=out, maps=maps, nbytes=nbytes, index=index,
+                    rasters=rasters, arrays=arrays,
+                    beams=(ranges, angles, mask), poses=poses_d,
+                    offsets=offsets_d)
+
+    def _thresholds(self):
+        return (float(np.float32(self.cfg.score_threshold)),
+                float(np.float32(self.cfg.known_rate_threshold)))
+
+    def match(self, queries):
+        """The batched core over ``queries`` in contiguous chunks, one per
+        mesh device, one host fetch for all, then a dense re-run of each
+        candidate whose argmax a prune could not certify.  Returns, per
+        query in order, (raster, scan arrays, sensor pose, score, found);
+        an empty list launches nothing."""
+        if not queries:
+            return []
+        chunks = [c for c in np.array_split(np.arange(len(queries)),
+                                            len(self.mesh)) if len(c)]
+        runs = [self._launch(dev, [queries[i] for i in c])
+                for dev, c in zip(self.mesh, chunks)]
+        self._m_stack_bytes.observe(sum(r["nbytes"] for r in runs))
+        # One device-to-host fetch for the whole step, of what the host
         # reads: pose, score, found and exact.
-        best_pose, score, found, exact = fetch(
-            (out[0], out[1], out[3], out[6]))
+        fields = [[r["out"][k] for r in runs] for k in (0, 1, 3, 6)]
+        best_pose, score, found, exact = fetch(tuple(
+            f[0] if len(f) == 1 else torch.cat([t.to(self.device) for t in f])
+            for f in fields))
         self.host_fetches += 1
 
+        matched = []
+        for r in runs:
+            ranges, angles, mask = r["beams"]
+            for j, slot in enumerate(r["index"]):
+                i = len(matched)
+                if not exact[i]:
+                    # A prune could not certify this candidate's argmax:
+                    # redo it densely through the serial core.
+                    d = fetch(correlative_core(
+                        self.mcfg, *(m[slot] for m in r["maps"]), ranges[j],
+                        angles[j], mask[j], r["poses"][j], r["offsets"][j],
+                        *self._thresholds(), dense=True,
+                    ))
+                    self.host_fetches += 1
+                    self.dense_reruns += 1
+                    best_pose[i], score[i], found[i] = d[0], d[1], d[3]
+                arrays = r["arrays"][j]
+                if arrays.ranges.device != self.device:
+                    arrays = scan_to_arrays(queries[i]["query_node"].scan_data,
+                                            self.cfg.beam_capacity,
+                                            self.device)
+                matched.append((r["rasters"][slot], arrays, best_pose[i],
+                                float(score[i]), bool(found[i])))
+        return matched
+
+    def detect(self, queries) -> List[dict]:
         results = []
-        for i, q in enumerate(queries):
-            raster = rasters[index[i]]
-            if not exact[i]:
-                # A prune could not certify this candidate's argmax: redo
-                # it densely through the serial core, replacing its row.
-                d = fetch(correlative_core(
-                    self.mcfg, raster.prob, raster.observed, *coarse[index[i]],
-                    ranges[i], angles[i], mask[i], poses_d[i], offsets_d[i],
-                    *thresholds, dense=True,
-                ))
-                self.host_fetches += 1
-                self.dense_reruns += 1
-                best_pose[i], score[i], found[i] = d[0], d[1], d[3]
-            if not found[i]:
+        for q, (raster, arrays, pose, score, found) in zip(
+                queries, self.match(queries)):
+            if not found:
                 continue
-            est_robot = P.move_backward(best_pose[i], arrays[i].rel_sensor_pose)
+            est_robot = P.move_backward(pose, arrays.rel_sensor_pose)
             final = self.final.optimize_pose(
-                ScanMatchingQuery(raster, arrays[i], est_robot))
+                ScanMatchingQuery(raster, arrays, est_robot))
             results.append(dict(
                 relative_pose=final.estimated_pose,
                 local_map_id=q["local_map"].local_map_id,
                 scan_node_id=q["query_node"].node_id,
                 covariance=final.covariance,
-                score=float(score[i]),
+                score=score,
             ))
         return results

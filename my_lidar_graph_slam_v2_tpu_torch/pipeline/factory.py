@@ -2,9 +2,10 @@
 
 Port of ``my_lidar_graph_slam_v2_tpu/pipeline/factory.py``
 (``slam_module_factory.cpp``): matchers selected by the reference's type
-names, the default loop-closing backend (batched or serial detector), and
-the reference's default system, with the JAX package's signatures and
-defaults plus ``device``, which the factory hands to every module.
+names, the default loop-closing backend (batched or serial detector), the
+multi-device backend, and the reference's default system, with the JAX
+package's signatures and defaults plus ``device`` (or ``mesh``), which the
+factory hands to every module.
 """
 from __future__ import annotations
 
@@ -23,7 +24,10 @@ from ..matching.hill_climbing import HillClimbingConfig, ScanMatcherHillClimbing
 from ..matching.linear_solver import LinearSolverConfig, ScanMatcherLinearSolver
 from ..metrics.registry import MetricManager
 from ..models.fused_matcher import FusedCorrelativeGNMatcher
+from ..parallel.distributed import DistributedPoseGraphOptimizer, RankSum
 from ..parallel.loop_sharded import LoopDetectorShardedCorrelative
+from ..parallel.mesh import make_mesh
+from ..parallel.multihost import MultiHostLoopDetector
 from ..sensor.filters import ScanAccumulator, ScanInterpolator, ScanOutlierFilter
 from .backend import LidarGraphSlamBackend
 from .frontend import FrontendConfig, LidarGraphSlamFrontend
@@ -45,31 +49,24 @@ def create_scan_matcher(type_name: str, *, device, **kw):
     raise ValueError(f"unknown scan matcher type: {type_name}")
 
 
-def create_default_backend(
-    *,
-    device,
-    resolution: float = 0.05,
-    beam_capacity: int = 512,
-    usable_range_max: float = 20.0,
-    n_theta_max: int = 208,
-    crop: int = 448,
-    score_threshold: float = 0.55,
-    known_rate_threshold: float = 0.6,
-    searcher_overrides: Optional[dict] = None,
-    optimizer_overrides: Optional[dict] = None,
-    inline: bool = True,
-    sharded: Optional[bool] = None,
-):
-    """Default backend on ``device``: nearest searcher + the correlative
-    loop detector (2.5 m x 2.5 m x 0.5 rad, crop 448) + LM optimizer,
-    matching ``launcher_settings_default.json`` /Backend.
-
-    ``sharded=None`` (the default) and ``True`` run all of a backend
-    step's candidates as one batch on ``device``
-    (``parallel/loop_sharded.py``: one coarse and one fine sweep launch per
-    step), as the JAX package's default does on one device; ``False``
-    runs the serial fused detector, one candidate at a time."""
-    loop_cfg = CorrelativeConfig(
+def _backend(device, make_detector, make_optimizer, *,
+             resolution: float = 0.05,
+             beam_capacity: int = 512,
+             usable_range_max: float = 20.0,
+             n_theta_max: int = 208,
+             crop: int = 448,
+             score_threshold: float = 0.55,
+             known_rate_threshold: float = 0.6,
+             searcher_overrides: Optional[dict] = None,
+             optimizer_overrides: Optional[dict] = None,
+             inline: bool = True):
+    """The default backend's parts at the JAX package's defaults, matching
+    ``launcher_settings_default.json`` /Backend: the nearest searcher, the
+    correlative loop detector (2.5 m x 2.5 m x 0.5 rad, crop 448, T 208,
+    512 beams) that ``make_detector(detector_cfg, matcher_cfg,
+    final_matcher, resolution)`` builds around a linear-solver final
+    matcher on ``device``, and the LM that ``make_optimizer(cfg)`` builds."""
+    matcher_cfg = CorrelativeConfig(
         range_x=2.5,
         range_y=2.5,
         range_theta=0.5,
@@ -88,29 +85,71 @@ def create_default_backend(
         LinearSolverConfig(resolution=resolution), device,
         name="LoopDetector.FinalScanMatcherLinearSolver",
     )
-    if sharded is not False:
-        detector = LoopDetectorShardedCorrelative(
-            detector_cfg, loop_cfg, final_matcher, device,
-            resolution=resolution,
-        )
-    else:
-        detector = LoopDetectorCorrelative(
-            detector_cfg,
-            FusedCorrelativeGNMatcher(
-                loop_cfg, LinearSolverConfig(resolution=resolution), device,
-                name="LoopDetector.ScanMatcherCorrelative",
-                final_name="LoopDetector.FinalScanMatcherLinearSolver",
-            ),
-            final_matcher,
-            resolution=resolution,
-        )
     searcher = LoopSearcherNearest(
         LoopSearcherConfig(**(searcher_overrides or {}))
     )
-    optimizer = PoseGraphOptimizer(
-        OptimizerConfig(**(optimizer_overrides or {})), device=device
-    )
+    detector = make_detector(detector_cfg, matcher_cfg, final_matcher,
+                             resolution)
+    optimizer = make_optimizer(OptimizerConfig(**(optimizer_overrides or {})))
     return LidarGraphSlamBackend(searcher, detector, optimizer, inline=inline)
+
+
+def create_default_backend(*, device, sharded: Optional[bool] = None, **kw):
+    """Default backend on ``device``: nearest searcher + the correlative
+    loop detector + LM optimizer; the keywords and defaults of
+    :func:`_backend`.
+
+    ``sharded=None`` (the default) and ``True`` run all of a backend
+    step's candidates as one batch on ``device``
+    (``parallel/loop_sharded.py``: one coarse and one fine sweep launch per
+    step), as the JAX package's default does on one device; ``False``
+    runs the serial fused detector, one candidate at a time."""
+    if sharded is not False:
+        def detector(detector_cfg, matcher_cfg, final_matcher, resolution):
+            return LoopDetectorShardedCorrelative(
+                detector_cfg, matcher_cfg, final_matcher, device,
+                resolution=resolution)
+    else:
+        def detector(detector_cfg, matcher_cfg, final_matcher, resolution):
+            return LoopDetectorCorrelative(
+                detector_cfg,
+                FusedCorrelativeGNMatcher(
+                    matcher_cfg, LinearSolverConfig(resolution=resolution),
+                    device, name="LoopDetector.ScanMatcherCorrelative",
+                    final_name="LoopDetector.FinalScanMatcherLinearSolver",
+                ),
+                final_matcher,
+                resolution=resolution,
+            )
+    return _backend(device, detector,
+                    lambda cfg: PoseGraphOptimizer(cfg, device=device), **kw)
+
+
+def create_distributed_backend(mesh, *, ranks: Optional[RankSum] = None,
+                               **kw):
+    """Multi-device backend of one process on ``mesh``
+    (``parallel/mesh.py``): a backend step's loop candidates split over the
+    mesh's devices, one batch each (``parallel/loop_sharded.py``), and the
+    Schur-complement LM over edge shards, one per device
+    (``parallel/distributed.py``); the final matcher on the mesh's first
+    device.  The keywords and defaults of :func:`_backend`.  With
+    ``ranks``, the processes of a ``torch.distributed`` group share the
+    work: loop candidates are routed to their map's owner and the LM sums
+    over the ranks (``parallel/multihost.py:create_multihost_backend``)."""
+    mesh = make_mesh(mesh)
+
+    def detector(detector_cfg, matcher_cfg, final_matcher, resolution):
+        if ranks is None:
+            return LoopDetectorShardedCorrelative(
+                detector_cfg, matcher_cfg, final_matcher, mesh,
+                resolution=resolution)
+        return MultiHostLoopDetector(detector_cfg, matcher_cfg, final_matcher,
+                                     mesh, resolution, ranks=ranks)
+
+    return _backend(
+        mesh[0], detector,
+        lambda cfg: DistributedPoseGraphOptimizer(mesh, cfg, ranks=ranks),
+        **kw)
 
 
 def create_default_slam(

@@ -229,6 +229,22 @@ def test_batched_core_is_bitwise_equal_on_cuda_and_cpu(cuda_device):
             assert torch.equal(g.cpu(), r)
 
 
+def _loop_graph(rng):
+    """An over-constrained map/scan graph: noisy intra edges, an inter edge
+    per map, loop edges from map 0 to the last scans."""
+    M, per_map = 4, 6
+    N = M * per_map
+    mi = list(np.repeat(np.arange(M), per_map)) + list(range(M - 1)) + [0] * 4
+    si = list(range(N)) + [per_map * (m + 1) for m in range(M - 1)] + \
+        list(range(N - 4, N))
+    il = [0] * (N + M - 1) + [1] * 4
+    E = len(mi)
+    edges = (np.array(mi, np.int32), np.array(si, np.int32),
+             np.array(il, np.int32), rng.normal(0, 0.3, (E, 3)),
+             np.tile(np.eye(3) * 100.0, (E, 1, 1)))
+    return rng.normal(0, 1, (M, 3)), rng.normal(0, 1, (N, 3)), edges
+
+
 def test_matching_and_lm_are_bitwise_equal_on_cuda_and_cpu(cuda_device):
     """The f32 math that differs by device (trig, sums over beams, the
     small solves, the LM) runs through ``utils/devmath.py`` or in f64, so
@@ -259,20 +275,7 @@ def test_matching_and_lm_are_bitwise_equal_on_cuda_and_cpu(cuda_device):
                                     else a for a in args))
     assert torch.equal(cov.cpu(), gauss_newton.covariance(*args))
 
-    # an over-constrained graph: noisy intra edges, an inter edge per map,
-    # and loop edges from map 0 to the last scans
-    M, per_map = 4, 6
-    N = M * per_map
-    mi = list(np.repeat(np.arange(M), per_map)) + list(range(M - 1)) + [0] * 4
-    si = list(range(N)) + [per_map * (m + 1) for m in range(M - 1)] + \
-        list(range(N - 4, N))
-    il = [0] * (N + M - 1) + [1] * 4
-    E = len(mi)
-    edges = (np.array(mi, np.int32), np.array(si, np.int32),
-             np.array(il, np.int32), rng.normal(0, 0.3, (E, 3)),
-             np.tile(np.eye(3) * 100.0, (E, 1, 1)))
-    mp = rng.normal(0, 1, (M, 3))
-    sp = rng.normal(0, 1, (N, 3))
+    mp, sp, edges = _loop_graph(rng)
     for solver in ("dense", "schur"):
         cfg = OptimizerConfig(solver=solver)
         a = PoseGraphOptimizer(cfg, device="cpu").optimize(mp, sp, edges)
@@ -396,3 +399,99 @@ def test_grid_counted_is_equal_on_cuda_and_cpu(cuda_device):
     assert torch.equal(b.values_u16().to(torch.int32).cpu(),
                        a.values_u16().to(torch.int32))
     assert torch.equal(b.counts.cpu(), a.counts)
+
+
+def test_distributed_lm_is_bitwise_equal_on_cuda_and_cpu(cuda_device):
+    """The distributed Schur LM on 1 and 4 edge shards on the card gives
+    the CPU's poses bit for bit, and the single-device LM's."""
+    from my_lidar_graph_slam_v2_tpu_torch.graph.optimizer import (
+        PoseGraphOptimizer,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.parallel.distributed import (
+        DistributedPoseGraphOptimizer,
+    )
+
+    mp, sp, edges = _loop_graph(np.random.default_rng(3))
+    want = PoseGraphOptimizer(device="cpu").optimize(mp, sp, edges)
+    for n in (1, 4):
+        for dev in ("cpu", cuda_device):
+            got = DistributedPoseGraphOptimizer((dev,) * n).optimize(
+                mp, sp, edges)
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])
+            assert got[2]["iterations"] == want[2]["iterations"]
+
+
+def _mesh_detector_queries(device):
+    """Three loop queries on two u8 maps (``_matcher_scene``'s room and
+    the same room shifted), their map-local nodes and scans, with the maps
+    on ``device``."""
+    from my_lidar_graph_slam_v2_tpu_torch import reference
+    from my_lidar_graph_slam_v2_tpu_torch.graph.pose_graph import (
+        LocalMapNode,
+        ScanNode,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.sensor.data import ScanData
+
+    x = _matcher_scene()
+    prob, obs = x["prob"].numpy(), x["obs"].numpy()
+    maps = [reference.local_map(m, x["off"].numpy() - 0.3 * m, device,
+                                observed=obs, prob_q=np.roll(prob, 7 * m, 1))
+            for m in range(2)]
+    rng = np.random.default_rng(6)
+    queries = []
+    for k, m in enumerate((0, 1, 0)):
+        angles = np.sort(rng.uniform(-np.pi, np.pi, 300))
+        scan = ScanData("S", 0.0, np.zeros(3), np.zeros(3), np.zeros(3),
+                        0.0, 12.0, float(angles[0]), float(angles[-1]),
+                        angles, rng.uniform(2.0, 5.0, 300))
+        pose = np.array([8.0 + 0.1 * k, 7.9, 0.1 - 0.05 * k])
+        queries.append(dict(
+            query_node=ScanNode(k, m, np.zeros(3), pose, scan),
+            local_map=maps[m],
+            local_map_node=LocalMapNode(m, np.zeros(3), True)))
+    return queries
+
+
+def _mesh_detector_match(mesh, device):
+    from my_lidar_graph_slam_v2_tpu_torch.loop.detector import (
+        LoopDetectorConfig,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.matching.correlative import (
+        CorrelativeConfig,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.matching.linear_solver import (
+        LinearSolverConfig,
+        ScanMatcherLinearSolver,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.parallel.loop_sharded import (
+        LoopDetectorShardedCorrelative,
+    )
+
+    det = LoopDetectorShardedCorrelative(
+        LoopDetectorConfig(score_threshold=0.1, known_rate_threshold=0.1,
+                           beam_capacity=512),
+        CorrelativeConfig(range_x=1.0, range_y=1.0, range_theta=0.4,
+                          n_theta_max=64, crop_rows=256, crop_cols=256),
+        ScanMatcherLinearSolver(LinearSolverConfig(), device), mesh)
+    before = csm_cuda.LAUNCHES
+    out = det.match(_mesh_detector_queries(device))
+    return ([(p, s, f) for _, _, p, s, f in out], csm_cuda.LAUNCHES - before,
+            det)
+
+
+def test_mesh_detector_on_one_device_equals_the_batched_detector(
+        cuda_device):
+    """The batched detector given a device and given a one-device mesh
+    make the same two sweep launches (plus two per dense re-run) and the
+    CPU's results bit for bit; a two-device mesh of the same card splits
+    the step into two chunks, two launches each, with the same results."""
+    want, _, _ = _mesh_detector_match("cpu", "cpu")
+    for mesh, chunks in ((cuda_device, 1), ((cuda_device,), 1),
+                         ((cuda_device, cuda_device), 2)):
+        got, launches, det = _mesh_detector_match(mesh, cuda_device)
+        assert launches == 2 * chunks + 2 * det.dense_reruns
+        assert det.host_fetches == 1 + det.dense_reruns
+        for g, w in zip(got, want, strict=True):
+            np.testing.assert_array_equal(g[0], w[0])
+            assert g[1:] == w[1:]

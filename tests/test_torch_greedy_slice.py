@@ -1,0 +1,97 @@
+"""The HillClimbing + GreedyEndpoint frontend of the reference's settings
+file in both packages (ROADMAP 3.10): ``create_slam_from_settings`` with
+``chip_smoke.HILL_CLIMBING_SETTINGS``, inline, over the first keyframes of
+``chip_smoke.py``'s office sequence (seed 0): 24 keyframes, past four
+local-map starts.  Odometry drifts slowly at first: over the first 12
+keyframes its ATE (0.0082 m) stays below the climber's own error (0.0140
+m), and from keyframe 21 on the climber beats it (0.0137 against 0.0203 m
+at 24; the port on the CPU).
+
+Tolerances, fixed before the first run: the same keyframe count; poses
+within 0.02 m and 0.01 rad.  Greedy-endpoint costs tie exactly, and the JAX
+package's f32 sums may break a tie by an ulp either way, after which the
+climber takes another 0.1 m / 0.1 rad move and refines back by halving
+steps; both packages' ATE below odometry's over the same scans.
+
+Measured on a CPU: the largest deviation from the JAX package is 0.0087 m
+(keyframe 16) and 0.0012 rad, the JAX package's ATE 0.0129 m.  The gate
+this test settles, dequantized probabilities against 0.1, breaks every
+assertion here: the poses leave the tolerance from keyframe 5 on and end
+2.26 m and 0.35 rad away, at ATE 0.32 m.
+"""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+
+import chip_smoke
+from my_lidar_graph_slam_v2_tpu.config import settings as jsettings
+from my_lidar_graph_slam_v2_tpu.datasets import synthetic as jsyn
+from my_lidar_graph_slam_v2_tpu_torch.config import settings as psettings
+from my_lidar_graph_slam_v2_tpu_torch.datasets import synthetic as psyn
+from my_lidar_graph_slam_v2_tpu_torch.matching.hill_climbing import (
+    ScanMatcherHillClimbing,
+)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+KEYFRAMES = 24
+TOL_XY = 0.02
+TOL_THETA = 0.01
+
+
+def _sequence(module):
+    """``chip_smoke.build_sequence(48)`` built with ``module``'s
+    synthetic worlds (the JAX package's or the port's)."""
+    size, step = 18.0, 0.08
+    one = module.loop_trajectory(size=size, laps=1.0, step=step)
+    per_lap = float(np.sum(np.hypot(np.diff(one[:, 0]), np.diff(one[:, 1]))))
+    laps = chip_smoke.KEYFRAMES * 0.5 * 1.06 / per_lap
+    return module.generate(
+        module.World.office(seed=0, size=size),
+        module.loop_trajectory(size=size, laps=laps, step=step),
+        n_beams=181, max_range=30.0, range_noise=0.01,
+        odom_noise=(0.01, 0.004), seed=0)
+
+
+def _drive(slam, seq):
+    """Scans until the ``KEYFRAMES``-th keyframe; returns (trajectory,
+    ground truth at keyframes, scans fed)."""
+    gt, n = [], 0
+    for scan, g in zip(seq.scans, seq.ground_truth):
+        n += 1
+        if slam.process_scan(scan, scan.odom_pose):
+            gt.append(g)
+            if len(gt) == KEYFRAMES:
+                break
+    slam.stop_backend()
+    return slam.get_trajectory(), np.asarray(gt), n
+
+
+@pytest.fixture(scope="module")
+def runs():
+    settings = chip_smoke.HILL_CLIMBING_SETTINGS
+    j = _drive(jsettings.create_slam_from_settings(settings,
+                                                   inline_backend=True),
+               _sequence(jsyn))
+    slam = psettings.create_slam_from_settings(settings, device="cpu",
+                                               inline_backend=True)
+    seq = _sequence(psyn)
+    return j, _drive(slam, seq), slam, seq
+
+
+def test_greedy_hill_climbing_slice_matches_reference(runs):
+    (j_est, _, j_n), (p_est, _, p_n) = runs[:2]
+    assert len(p_est) == len(j_est) == KEYFRAMES and p_n == j_n
+    d = np.abs(p_est - j_est)
+    assert d[:, :2].max() <= TOL_XY, d[:, :2].max()
+    assert d[:, 2].max() <= TOL_THETA, d[:, 2].max()
+
+
+def test_greedy_hill_climbing_slice_beats_odometry(runs):
+    (j_est, j_gt, _), (p_est, p_gt, n), slam, seq = runs
+    assert isinstance(slam.frontend.scan_matcher, ScanMatcherHillClimbing)
+    assert len(slam.builder.local_maps) >= 5
+    odom = np.stack([s.odom_pose for s in seq.scans[:n]])
+    ate_odom = psyn.ate_rmse(odom, seq.ground_truth[:n])
+    assert psyn.ate_rmse(p_est, p_gt) < ate_odom
+    assert psyn.ate_rmse(j_est, j_gt) < ate_odom

@@ -416,8 +416,8 @@ def test_checkpoint_resume_equals_an_uninterrupted_run(tmp_path):
 def test_checkpoint_shape_comes_from_the_saved_raster(tmp_path):
     """A restored map takes its shape from the saved array, not from the
     configuration (ROADMAP 3.4); a map with neither raster nor scans (an
-    owner-sharded checkpoint) raises until ``LocalMap.drop_heavy`` is
-    ported."""
+    owner-sharded checkpoint) is restored dropped, keeping its extent and
+    offset, and the maps whose scans are held are rebuilt."""
     seq = psyn.generate(psyn.World.office(seed=4, size=8.0),
                         psyn.loop_trajectory(size=8.0, laps=0.3, step=0.25),
                         n_beams=121, max_range=8.0, seed=5)
@@ -441,5 +441,12 @@ def test_checkpoint_shape_comes_from_the_saved_raster(tmp_path):
     state["scan_meta"] = state["scan_meta"][1:]  # scan 0 held elsewhere
     Path(f"{prefix}.state.json").write_text(json.dumps(state))
     assert len(pg["ScanNodes"]) > 1
-    with pytest.raises(NotImplementedError, match="1.16"):
-        checkpoint.load(_ckpt_slam(), prefix)
+    restored = checkpoint.load(_ckpt_slam(), prefix)
+    m0 = restored.builder.local_maps[0]
+    assert m0.dropped and not m0.holds_raster and m0.shape == (384, 384)
+    np.testing.assert_array_equal(m0.offset_xy,
+                                  slam.builder.local_maps[0].offset_xy)
+    with pytest.raises(RuntimeError, match="owner"):
+        m0.raster(0.05)
+    assert restored.pose_graph.scan_nodes[0].scan_data is None
+    assert restored.builder.local_maps[-1].holds_raster

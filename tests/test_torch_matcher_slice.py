@@ -2,9 +2,9 @@
 packages: ``create_slam_from_settings`` with a HillClimbing frontend and a
 GridSearch loop detector, inline, on a small synthetic world.
 
-The frontend's climber uses SquareError (the reference pairs it with
-GreedyEndpoint, whose JAX form gates raw u8 levels, ROADMAP 3.9, so the
-packages would part at the first keyframe); the loop matcher is GridSearch
+The frontend's climber uses SquareError (the reference's pairing with
+GreedyEndpoint is ``tests/test_torch_greedy_slice.py``); the loop matcher
+is GridSearch
 at 1.0 m x 1.0 m x 0.3 rad with a 0.01 rad theta step (T = 31, 21 x 21
 offsets, so JAX takes its conv branch), SquareError winner cost.
 

@@ -2,7 +2,8 @@
 interpreter with both imports blocked imports the port, runs a small
 frontend through the factory with the branch-and-bound loop backend, one
 branch-and-bound loop match, one batched correlative detection (the
-default backend's), one grid-search and one hill-climbing match, a
+default backend's), one detection and one solve of the multi-device
+backend, one owner-routed detection in a one-rank gloo group, one grid-search and one hill-climbing match, a
 counting-grid update and one pose-graph solve, imports the launcher and
 its modules, builds a system from settings and reads a Carmen log with the
 native parser, and ends with neither loaded;
@@ -104,6 +105,30 @@ batched = create_default_backend(device="cpu", beam_capacity=128,
 batched.detect([q])
 assert batched.host_fetches == 1, "the batched detector did not run"
 
+import socket
+import torch.distributed as tdist
+from my_lidar_graph_slam_v2_tpu_torch.parallel import (
+    distributed, mesh, multihost, worker)
+from my_lidar_graph_slam_v2_tpu_torch.pipeline.factory import (
+    create_distributed_backend)
+
+small = dict(beam_capacity=128, n_theta_max=16, crop=96)
+dist_backend = create_distributed_backend(mesh.make_mesh(["cpu", "cpu"]),
+                                          **small)
+dist_backend.loop_detector.detect([q])
+assert dist_backend.loop_detector.host_fetches == 1
+assert dist_backend.optimizer.optimize(*snap[2:])[2]["iterations"] >= 1
+sock = socket.socket()
+sock.bind(("localhost", 0))
+port = sock.getsockname()[1]
+sock.close()
+multihost.init_multihost(f"tcp://localhost:{port}", 1, 0, backend="gloo")
+mh = multihost.create_multihost_backend(mesh.make_mesh(["cpu"]),
+                                        **small)
+mh.loop_detector.detect([q])
+assert mh.loop_detector.ranks.calls == 1
+tdist.destroy_process_group()
+
 import numpy as np
 from my_lidar_graph_slam_v2_tpu_torch.grid import geometry
 from my_lidar_graph_slam_v2_tpu_torch.grid.counted import GridCounted
@@ -155,7 +180,7 @@ def test_port_sources_do_not_import_jax_or_the_jax_package():
     read from the source (an import inside a function counts too)."""
     files = sorted((ROOT / (JAX_PACKAGE + "_torch")).rglob("*.py"))
     files += [ROOT / n for n in ("chip_smoke.py", "profile_slice.py",
-                                 "sweep_ab.py")]
+                                 "sweep_ab.py", "backend_ab.py")]
     assert len(files) > 40
     found = []
     for f in files:
