@@ -85,9 +85,24 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
     global maps with the observed cells of (a)'s run's map built in one
     process; prints each rank's wall time, sweep launches and collectives
     per backend step.
-12. Prints the kernel summary line (every number of it measured or, for
-   ``bound_ms``, computed in this run), the nvidia-smi line, and last
-   ``{"ok": true, "device": {...}}``.
+12. Head to head: the committed logs ``h2h/synth7.clf``, ``synth11.clf``
+    and the 997-keyframe ``synth3.clf`` through the port's launcher on the
+    card (``scripts/head_to_head.py:run_ours``, a subprocess, with the
+    reference binary's settings ``h2h/settings_lm.json``): the binary's
+    nodes, its loop edges (synth3: at least as many), ATE at or below the
+    binary's and at most 0.005 m above the JAX package's artifact; prints
+    each log's wall time, sweep launches and peak device memory.
+13. The measurement scripts: ``scripts/bench_csm.py`` (the C++ baseline's
+    live rate in its subprocess, matches/s at batch 8 and 16 and the stage
+    ms; the card's batch-8 outputs equal to the CPU's bit for bit),
+    ``scripts/eval_ate.py``'s four configurations (the keyframes of
+    ``results_ate.json``, ATE below odometry's, loop edges for #2-#4, and
+    for #3 a hit-image launch per branch-and-bound match) and
+    ``scripts/bench_e2e.py`` at 200 keyframes with the threaded backend
+    (ATE below odometry's).
+14. Prints the kernel summary line (every number of it measured or, for
+    ``bound_ms``, computed in this run), the nvidia-smi line, and last
+    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.
 """
@@ -102,6 +117,17 @@ import warnings
 
 import numpy as np
 import torch
+
+# The peaks behind every bound_ms and the bound of a sweep are shared with
+# the port's measurement scripts; build_sequence is bench_e2e's office
+# sequence.
+from my_lidar_graph_slam_v2_tpu_torch.scripts.bench_e2e import build_sequence
+from my_lidar_graph_slam_v2_tpu_torch.scripts.common import (
+    F32_OPS_PER_S,
+    bound as _bound,
+    nvidia_smi as _nvidia_smi,
+    sweep_bound,
+)
 
 # Tolerances of the CUDA-vs-CPU slice comparison, fixed before any run.
 # Keyframes are gated by odometry alone, so their count must be equal.
@@ -125,22 +151,6 @@ LOOP_TOL_XY = 0.05
 LOOP_TOL_THETA = 0.005
 # Kernel launches captured in one CUDA graph for a device time.
 GRAPH_LAUNCHES = 20
-# The card's peaks behind every ``bound_ms`` (H100 SXM at its 700 W limit):
-# HBM bytes/s from the data sheet, and int32 adds/s as 132 SMs x 64 INT32
-# lanes x the 1.98 GHz boost clock.
-HBM_BYTES_PER_S = 3.35e12
-INT32_ADDS_PER_S = 132 * 64 * 1.98e9
-# f32 adds/s outside the tensor cores (data sheet), for the hit images'
-# atomic adds.
-F32_OPS_PER_S = 67e12
-
-
-def _nvidia_smi() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return res.stdout.strip().splitlines()[0]
 
 
 def _graph_ms(fn, launches=GRAPH_LAUNCHES, replays=TIMED_RUNS):
@@ -191,27 +201,6 @@ def _events_ms(fn, calls=TIMED_RUNS, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / calls
-
-
-def _bound(nbytes, ops, ops_per_s):
-    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    operations over their peak rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def sweep_bound(s, ok):
-    """Bound of one sweep: each input byte read once (window, beam cells
-    and mask, tile origins), each output byte written once, and one int32
-    add per (valid beam, offset) of this input's mask.  One add serves
-    both channels: a cell's two u8 values fit in one 32-bit word (p | o <<
-    16) and a warp's sums cannot carry between the halves, as the kernel
-    adds them."""
-    N, T, B, K = s["N"], s["T"], s["B"], s["origins"].shape[1]
-    nbytes = (N * s["in_r"] * s["in_c"] * 2 + N * T * B * 9 + N * K * 8
-              + N * T * 2 * s["n_off"] * 4)
-    return _bound(nbytes, int(ok.sum()) * s["n_off"], INT32_ADDS_PER_S)
 
 
 def kernel_shapes():
@@ -379,24 +368,6 @@ def check_kernel(device):
         print(f"kernel {json.dumps(row)}", flush=True)
         out.append(row)
     return out
-
-
-def build_sequence(target_keyframes: int, seed: int = 0, step: float = 0.08,
-                   size: float = 18.0, keyframe_travel: float = 0.5):
-    """The synthetic office sequence of ``scripts/bench_e2e.py``: an 18 m
-    world, 181 beams, 30 m range, odometry noise (0.01, 0.004), long
-    enough for ~target_keyframes at the 0.5 m keyframe gate."""
-    from my_lidar_graph_slam_v2_tpu_torch.datasets import synthetic
-
-    world = synthetic.World.office(seed=seed, size=size)
-    one = synthetic.loop_trajectory(size=size, laps=1.0, step=step)
-    per_lap = float(np.sum(np.hypot(np.diff(one[:, 0]), np.diff(one[:, 1]))))
-    laps = target_keyframes * keyframe_travel * 1.06 / per_lap
-    traj = synthetic.loop_trajectory(size=size, laps=laps, step=step)
-    return synthetic.generate(
-        world, traj, n_beams=181, max_range=30.0, range_noise=0.01,
-        odom_noise=(0.01, 0.004), seed=seed,
-    )
 
 
 def run_slice(device, seq, make_slam=None, **factory_kw):
@@ -1568,6 +1539,128 @@ def check_two_ranks(device, ref, ref_stats, one_process_slam):
     return stats
 
 
+# Phase 12's bars, fixed before its first run: synth7 and synth11 as the
+# CPU test (tests/test_torch_h2h.py) holds them; synth3 at the binary's 997
+# nodes and at least its 366 loop edges, ATE at or below the binary's
+# (0.1116 m) and at most the JAX artifact's (0.02485 m) plus the slack.
+H2H_SLACK = 0.005
+H2H_SEEDS = (7, 11, 3)
+
+
+def check_head_to_head():
+    """Phase 12: the committed logs ``h2h/synth{7,11,3}.clf`` through
+    ``scripts/head_to_head.py:head_to_head`` on the card (the port's
+    launcher in a subprocess with ``--device cuda`` and the binary's
+    settings, scored against ground truth beside the reference binary's
+    recorded run and the JAX package's artifact, and the optimizer
+    cross-check); prints each log's wall time, the launcher's kernel
+    launches and its peak device memory."""
+    import tempfile
+
+    from my_lidar_graph_slam_v2_tpu_torch.scripts import head_to_head as h2h
+
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for seed in H2H_SEEDS:
+            r = h2h.head_to_head(seed, tmp, device="cuda")
+            ours, ref, jax_art = r["ours"], r["reference"], r["jax_artifact"]
+            row = dict(seed=seed, **{k: v for k, v in ours.items()
+                                     if k != "device_report"},
+                       **ours["device_report"], reference=ref,
+                       jax_artifact=jax_art,
+                       optimizer_cross_check=r["optimizer_cross_check"])
+            print(f"head_to_head {json.dumps(row)}", flush=True)
+            loops_ok = (ours["loop_edges"] >= ref["loop_edges"] if seed == 3
+                        else ours["loop_edges"] == ref["loop_edges"])
+            if not (ours["nodes"] == ref["nodes"] == jax_art["nodes"]
+                    and loops_ok and row["csm_sweep_launches"] > 0
+                    and ours["ate_m"] <= ref["ate_m"]
+                    and ours["ate_m"] <= jax_art["ate_m"] + H2H_SLACK):
+                raise AssertionError(
+                    f"synth{seed}: {ours} against the binary's {ref} and "
+                    f"the JAX artifact's {jax_art}")
+            rows.append(row)
+    return rows
+
+
+def check_scripts(device):
+    """Phase 13: the port's measurement scripts on the card.
+
+    (a) ``bench_csm.measure``: the C++ baseline's live rate in its
+    subprocess, the batched core's matches/s at batch 8 and 16 and the
+    stage ms, with the batch-8 outputs equal to the CPU's (plain sweep)
+    bit for bit.  (b) ``eval_ate``'s four configurations: the keyframes of
+    ``results_ate.json``, ATE below odometry's, at least one loop edge for
+    #2-#4 (printed beside the file's), and for #3 at least one hit-image
+    launch per branch-and-bound match.  (c) ``bench_e2e.run`` at 200
+    keyframes with the threaded backend: ATE below odometry's."""
+    from pathlib import Path
+
+    from my_lidar_graph_slam_v2_tpu_torch.matching import branch_bound
+    from my_lidar_graph_slam_v2_tpu_torch.ops import csm_cuda, hit_images_cuda
+    from my_lidar_graph_slam_v2_tpu_torch.scripts import (
+        bench_csm,
+        bench_e2e,
+        eval_ate,
+    )
+
+    out = {}
+    cases = bench_csm.build_workload()
+    csm_cuda.LAUNCHES = 0
+    bench = bench_csm.measure(device, cases)
+    bench["csm_sweep_launches"] = csm_cuda.LAUNCHES
+    print(f"bench_csm {json.dumps(bench)}", flush=True)
+    _, _, gpu = bench_csm.bench_device(cases, iters=1, device=device,
+                                       with_stages=False)
+    _, _, cpu = bench_csm.bench_device(cases, iters=1, device="cpu",
+                                       with_stages=False)
+    if not all(torch.equal(g.cpu(), c) for g, c in zip(gpu, cpu)):
+        raise AssertionError("bench_csm: the card's batch differs from the "
+                             "CPU's")
+    if not (bench["value"] > 0 and bench["value_batch16"] > 0
+            and bench["csm_sweep_launches"] > 0):
+        raise AssertionError(f"bench_csm: {bench}")
+    out["bench_csm"] = bench
+
+    recorded = {r["config"]: r for r in json.loads(
+        (Path(__file__).resolve().parent / "results_ate.json").read_text())}
+    out["eval_ate"] = []
+    for name, kw in eval_ate.configs():
+        csm_cuda.LAUNCHES = hit_images_cuda.LAUNCHES = 0
+        bb = [(branch_bound.ScanMatcherBranchBound, "optimize_pose",
+               "bb match", False)]
+        with StageTimer(device, bb) as timer:
+            r = eval_ate.run_config(name, device=device, **kw)
+        r.update(csm_sweep_launches=csm_cuda.LAUNCHES,
+                 hit_image_launches=hit_images_cuda.LAUNCHES,
+                 bb_matches=timer.acc.get("bb match", (0,))[0],
+                 recorded_keyframes=recorded[name]["keyframes"],
+                 recorded_loop_edges=recorded[name]["loop_edges"])
+        print(f"eval_ate {json.dumps(r)}", flush=True)
+        loops = kw["backend_kind"] is not None
+        if (r["keyframes"] != r["recorded_keyframes"]
+                or not r["ate_m"] < r["ate_odometry_m"]
+                or (loops and r["loop_edges"] < 1)):
+            raise AssertionError(f"eval_ate {name}: {r}")
+        if kw["backend_kind"] == "branchbound" and not (
+                r["bb_matches"] >= 1
+                and r["hit_image_launches"] >= r["bb_matches"]):
+            raise AssertionError(f"eval_ate {name}: {r['hit_image_launches']} "
+                                 f"hit-image launches in {r['bb_matches']} "
+                                 "branch-and-bound matches")
+        out["eval_ate"].append(r)
+
+    csm_cuda.LAUNCHES = 0
+    e2e = bench_e2e.run(200, threaded=True, progress=False, device=device)
+    e2e["csm_sweep_launches"] = csm_cuda.LAUNCHES
+    print(f"bench_e2e {json.dumps({k: v for k, v in e2e.items() if k != 'stages'})}",
+          flush=True)
+    if not (e2e["keyframes"] > 100 and e2e["ate_rmse_m"] < e2e["ate_odometry_m"]):
+        raise AssertionError(f"bench_e2e: {e2e}")
+    out["bench_e2e"] = e2e
+    return out
+
+
 def _kernel_line(rows, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
     """Sums of ``keys`` over ``rows``, ``bound_by`` of the larger bound
     and the share of the bound."""
@@ -1612,6 +1705,8 @@ def main() -> int:
     dist, dist_run = check_distributed_loop_slice(device, phase7, batched)
     nccl = check_multihost_loop_slice(device, phase7, batched)
     two = check_two_ranks(device, phase7, batched, dist_run["slam"])
+    h2h = check_head_to_head()
+    scripts = check_scripts(device)
 
     # Top-level times: the frontend's two sweeps of a keyframe (coarse +
     # fine) and branch-and-bound's hit images; every shape is in "shapes".
@@ -1637,7 +1732,13 @@ def main() -> int:
                 distributed_loop=dist["csm_sweep_launches"],
                 multihost_loop=nccl["csm_sweep_launches"],
                 multihost_two_ranks=[r["csm_sweep_launches"]
-                                     for r in two["ranks"]]),
+                                     for r in two["ranks"]],
+                head_to_head={f"synth{r['seed']}": r["csm_sweep_launches"]
+                              for r in h2h},
+                bench_csm=scripts["bench_csm"]["csm_sweep_launches"],
+                eval_ate={r["config"]: r["csm_sweep_launches"]
+                          for r in scripts["eval_ate"]},
+                bench_e2e=scripts["bench_e2e"]["csm_sweep_launches"]),
             max_abs_err=max(r["max_abs_err"] for r in shapes),
             **_kernel_line(frontend),
             shapes=shapes,
@@ -1651,7 +1752,11 @@ def main() -> int:
             launches_by_path=dict(
                 branch_bound_loop=loop["hit_image_launches"],
                 batched_loop=batched["hit_image_launches"],
-                launcher=cli["hit_image_launches"]),
+                launcher=cli["hit_image_launches"],
+                head_to_head={f"synth{r['seed']}": r["hit_image_launches"]
+                              for r in h2h},
+                eval_ate={r["config"]: r["hit_image_launches"]
+                          for r in scripts["eval_ate"]}),
             max_abs_err=max(r["max_abs_err"] for r in hit_shapes),
             **_kernel_line(bb_shape),
             shapes=hit_shapes,

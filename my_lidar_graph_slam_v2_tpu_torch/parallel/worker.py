@@ -44,14 +44,9 @@ def config3_sequence(seed: int = 11, laps: float = 1.3):
     """The world of ``scripts/eval_ate.py``'s config #3: a 12 m office,
     ``laps`` laps at 8 cm steps, 181 beams to 12 m, odometry noise
     (0.05, 0.02)."""
-    from ..datasets import synthetic
+    from ..scripts.eval_ate import sequence
 
-    return synthetic.generate(
-        synthetic.World.office(seed=seed, size=12.0),
-        synthetic.loop_trajectory(size=12.0, laps=laps, step=0.08),
-        n_beams=181, max_range=12.0, range_noise=0.01,
-        odom_noise=(0.05, 0.02), seed=seed + 1,
-    )
+    return sequence(laps, (0.05, 0.02), seed)
 
 
 def _system(args, mesh):

@@ -31,7 +31,7 @@ from ..io import graph_plot, map_saver
 from ..io.carmen import read_carmen_log
 from ..metrics.registry import MetricManager
 from ..network.slam_client import GridMapParams, SlamClient
-from ..ops import cuda_build
+from ..ops import csm_cuda, cuda_build, hit_images_cuda
 from ..sensor.data import ScanData
 
 
@@ -158,6 +158,14 @@ def main(argv=None):
     MetricManager.instance().save_json(f"{out_prefix}.metric.json")
     print(f"saved {out_prefix}.png / .posegraph.json / .metric.json",
           file=sys.stderr)
+    if device.type == "cuda":
+        # What the run asked of the card: each kernel's launches in this
+        # process and its peak device memory.
+        print("device report " + json.dumps(dict(
+            csm_sweep_launches=csm_cuda.LAUNCHES,
+            hit_image_launches=hit_images_cuda.LAUNCHES,
+            peak_device_mb=torch.cuda.max_memory_allocated(device) / 2**20,
+        )), file=sys.stderr)
     return 0
 
 

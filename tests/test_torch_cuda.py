@@ -495,3 +495,21 @@ def test_mesh_detector_on_one_device_equals_the_batched_detector(
         for g, w in zip(got, want, strict=True):
             np.testing.assert_array_equal(g[0], w[0])
             assert g[1:] == w[1:]
+
+
+def test_bench_csm_batch_equals_the_cpu(cuda_device):
+    """``scripts/bench_csm.py``'s device part at batch 8: the card's
+    outputs equal the CPU's (plain sweep) bit for bit, poses included
+    (ROADMAP's device-independent math), with one coarse and one fine
+    sweep launch per call."""
+    from my_lidar_graph_slam_v2_tpu_torch.scripts import bench_csm
+
+    cases = bench_csm.build_workload()
+    _, _, cpu = bench_csm.bench_device(cases, iters=1, device="cpu",
+                                       with_stages=False)
+    before = csm_cuda.LAUNCHES
+    _, _, gpu = bench_csm.bench_device(cases, iters=1, device=cuda_device,
+                                       with_stages=False)
+    assert csm_cuda.LAUNCHES == before + 4  # a warm-up call and a timed one
+    for g, c in zip(gpu, cpu):
+        assert torch.equal(g.cpu(), c)

@@ -5,8 +5,9 @@ branch-and-bound loop match, one batched correlative detection (the
 default backend's), one detection and one solve of the multi-device
 backend, one owner-routed detection in a one-rank gloo group, one grid-search and one hill-climbing match, a
 counting-grid update and one pose-graph solve, imports the launcher and
-its modules, builds a system from settings and reads a Carmen log with the
-native parser, and ends with neither loaded;
+its modules, builds a system from settings, reads a Carmen log with the
+native parser, imports the measurement scripts and runs the head-to-head
+optimizer cross-check on one committed log, and ends with neither loaded;
 and no source of the port, nor its scripts, has an import statement for
 either."""
 import ast
@@ -160,6 +161,19 @@ import tempfile
 with tempfile.TemporaryDirectory() as tmp:
     carmen.write_carmen_log(seq.scans[:3], tmp + "/s.log")
     assert len(carmen.read_carmen_log(tmp + "/s.log", native=True)) == 3
+
+from pathlib import Path
+from my_lidar_graph_slam_v2_tpu_torch.scripts import (
+    bench_csm, bench_e2e, common, eval_ate, head_to_head, metric_diff)
+
+h2h = Path("h2h")
+x = head_to_head.optimizer_cross_check(h2h / "ref_synth7.posegraph.json",
+                                       h2h / "ref_synth7.metric.json")
+assert abs(x["our_error_on_ref_solution"] - x["ref_final_error"]) < 1e-4
+assert len(bench_e2e.build_sequence(4).scans) > 10
+assert len(eval_ate.configs()) == 4 and metric_diff.SECTIONS
+assert bench_csm.pinned_cpu_baseline()["cpu_rate"] > 0
+assert common.card(common.script_device("cpu", "t"))["platform"] == "cpu"
 assert not [m for m in sys.modules if _blocked(m)]
 print("ok", slam.process_count)
 """
