@@ -7,9 +7,9 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
 
 1. Device: requires CUDA (there is no CPU fallback) and prints the card's
    name and power limit as ``nvidia-smi`` reports them.
-2. Build: compiles ``csrc/csm_sweep.cu`` and ``csrc/hit_images.cu`` with
-   nvcc for sm_90a from the checkout's sources, both at once, and prints
-   the build times and ptxas reports.
+2. Build: compiles ``csrc/csm_sweep.cu``, ``csrc/csm_sweep_f32.cu`` and
+   ``csrc/hit_images.cu`` with nvcc for sm_90a from the checkout's
+   sources, all at once, and prints the build times and ptxas reports.
 3. Kernels against plain: the CSM sweep kernel must be ``torch.equal`` to
    its plain PyTorch version at every sweep the system runs
    (:func:`kernel_shapes`: the frontend's coarse, fine and dense sweeps,
@@ -22,7 +22,12 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    from CUDA-graph replays (:func:`_graph_ms`), beside its bound, the
    plain version's time and one library call's (``F.conv2d`` of the
    window with hit-image filters for a one-tile sweep, ``torch.bincount``
-   for the hit images).
+   for the hit images).  The f32 form of the sweep likewise at the
+   frontend's, the correlative loop matchers' (serial and batched), the
+   grid search's and the degenerate shapes, on windows from a seeded f32
+   map rounded as each precision rounds them, the plain result also
+   unchanged when the beams are permuted (``F.conv2d`` f32 its library
+   call).
 4. The frontend slice: ``create_default_slam(device="cuda")`` at the
    factory defaults drives the synthetic office sequence for >= 40
    keyframes; the same sequence runs through the port on the CPU (plain
@@ -99,8 +104,29 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
     ``results_ate.json``, ATE below odometry's, loop edges for #2-#4, and
     for #3 a hit-image launch per branch-and-bound match) and
     ``scripts/bench_e2e.py`` at 200 keyframes with the threaded backend
-    (ATE below odometry's).
-14. Prints the kernel summary line (every number of it measured or, for
+    (ATE below odometry's), ``eval_bb_pyramid`` at the JAX script's sizes
+    (branch-and-bound's score the dense sweep's gated argmax on both
+    maps), ``eval_scaling`` on one card and ``eval_scaling_pipeline``
+    (P = 1 and 2 gloo workers on the card, the same ATE and trajectory).
+14. f32 maps at full width: phase 7's loop queries matched against their
+    local maps as f32 probability rasters (1024 x 1024 at 5 cm) by the
+    batched detector's correlative config at "highest" and "split" and
+    with the gather backend (the whole map as the window), the grid
+    search at phase 9's steps and branch-and-bound at phase 5's config:
+    ms per match, f32 and u8 sweep launches per match (2 f32 per
+    correlative match, 1 per grid-search match, none u8) and found flags;
+    the same found flags as the u8 match of each query and poses within
+    0.05 m / 0.02 rad of it, and on the CPU for 4 queries bitwise-equal
+    poses.
+15. The gather backend: phase 6's system with ``sweep_backend="gather"``
+    on the card and the CPU: phase 6's keyframes, a loop edge, bitwise
+    poses, ATE below odometry's and within 0.005 m of phase 6's; loop
+    edges and ms per match beside phase 6's.
+16. The scatter rasterizer: phase 4's slice with
+    ``rasterize_backend="scatter"`` on the card and the CPU: phase 4's
+    keyframes, bitwise poses, ATE within 0.005 m of phase 4's; ms per
+    keyframe beside phase 4's.
+17. Prints the kernel summary line (every number of it measured or, for
     ``bound_ms``, computed in this run), the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -366,6 +392,80 @@ def check_kernel(device):
                 (lib_out * float(quant.INV255) - got).abs().max()),
         )
         print(f"kernel {json.dumps(row)}", flush=True)
+        out.append(row)
+    return out
+
+
+# Phase 3, the f32 form: the sweeps of every f32-window path (the
+# correlative matchers' coarse and fine sweeps, serial and batched, the grid
+# search's) and the frontend's shapes, as the u8 rows.
+F32_SHAPES = ("coarse", "fine", "dense", "loop_coarse", "loop_fine",
+              "loop_coarse_batch", "loop_fine_batch", "grid_search",
+              "degenerate")
+
+
+def f32_raw_window(rng, win_u8):
+    """An f32 window ``[N, in_r, in_c, 2]`` (channels last) of the u8
+    window's observed cells, each with a probability drawn uniform in
+    [1e-3, 1 - 1e-3] (0 where unobserved), before any rounding."""
+    obs = win_u8[:, 1] > 0
+    p = np.where(obs, rng.uniform(1e-3, 1 - 1e-3, obs.shape), 0)
+    return np.stack([p, obs], -1).astype(np.float32)
+
+
+def check_f32_kernel(device):
+    """Phase 3, f32 windows: the f32 sweep kernel vs its plain version
+    (``torch.equal``) at :data:`F32_SHAPES`, on windows from a seeded f32
+    map (probabilities in [1e-3, 1 - 1e-3] where observed) rounded as each
+    precision rounds them; the plain result unchanged when the beams are
+    permuted; device ms of the "split" window from CUDA-graph replays,
+    beside its bound, the plain version's ms and ``F.conv2d`` f32's."""
+    from my_lidar_graph_slam_v2_tpu_torch.ops import csm, csm_cuda
+
+    rng = np.random.default_rng(3)
+    gen = torch.Generator().manual_seed(3)
+    out = []
+    for s in kernel_shapes():
+        if s["shape"] not in F32_SHAPES:
+            continue
+        win_u8, hr, hc, ok = sweep_inputs(rng, s)
+        raw = torch.as_tensor(f32_raw_window(rng, win_u8), device=device)
+        hr, hc, ok = (torch.as_tensor(a, device=device) for a in (hr, hc, ok))
+        origins = torch.as_tensor(s["origins"], device=device)
+        th, tw, stride = s["tile"]
+        kw = dict(tile_h=th, tile_w=tw, stride=stride)
+        for precision in ("highest", "fast", "split"):
+            win = csm.round_window(raw, precision).contiguous()
+            args = (win, hr, hc, ok, origins)
+            got = csm_cuda.csm_sweep_f32(*args, **kw)
+            ref = csm.sweep_tiles_plain(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(
+                    f"f32 kernel != plain at shape {s['shape']}, {precision}")
+        perm = torch.randperm(s["B"], generator=gen).to(device)
+        permuted = csm.sweep_tiles_plain(win, hr[..., perm], hc[..., perm],
+                                         ok[..., perm], origins, **kw)
+        if not torch.equal(permuted, ref):
+            raise AssertionError(
+                f"f32 plain sweep depends on the beam order at {s['shape']}")
+        lib, lib_out = sweep_library_call(win.permute(0, 3, 1, 2), hr, hc, ok,
+                                          s)
+        bound_ms, bound_by = sweep_bound(s, ok, f32=True)
+        ms = _graph_ms(lambda: csm_cuda.csm_sweep_f32(*args, **kw))
+        row = dict(
+            shape=s["shape"], N=s["N"], T=s["T"], B=s["B"], crop=s["crop"],
+            tile=list(s["tile"]), tiles=int(s["origins"].shape[1]),
+            n_off=s["n_off"], precisions_checked=3, beams_permuted=True,
+            max_abs_err=float((got - ref).abs().max()), ms=ms,
+            plain_ms=_events_ms(lambda: csm.sweep_tiles_plain(*args, **kw)),
+            bound_ms=bound_ms, bound_by=bound_by,
+            pct_of_bound=100 * bound_ms / ms,
+            library_ms=None if lib is None else _events_ms(lib),
+            library_max_abs_err=None if lib is None else float(
+                (lib_out - got).abs().max()),
+        )
+        print(f"f32_kernel {json.dumps(row)}", flush=True)
         out.append(row)
     return out
 
@@ -1602,6 +1702,9 @@ def check_scripts(device):
         bench_csm,
         bench_e2e,
         eval_ate,
+        eval_bb_pyramid,
+        eval_scaling,
+        eval_scaling_pipeline,
     )
 
     out = {}
@@ -1658,7 +1761,415 @@ def check_scripts(device):
     if not (e2e["keyframes"] > 100 and e2e["ate_rmse_m"] < e2e["ate_odometry_m"]):
         raise AssertionError(f"bench_e2e: {e2e}")
     out["bench_e2e"] = e2e
+
+    csm_cuda.LAUNCHES = csm_cuda.F32_LAUNCHES = hit_images_cuda.LAUNCHES = 0
+    bb = eval_bb_pyramid.run(device)
+    bb.update(csm_sweep_launches=csm_cuda.LAUNCHES,
+              hit_image_launches=hit_images_cuda.LAUNCHES)
+    print(f"eval_bb_pyramid {json.dumps(bb)}", flush=True)
+    for name in ("noise", "peaked"):
+        m = bb[f"{name}_map"]
+        if not (m["bb_found"] and m["dense_found"]
+                and m["bb_score"] == m["dense_gated_best_score"]):
+            raise AssertionError(f"eval_bb_pyramid, {name} map: {m}")
+    if not (bb["peaked_map"]["bb_blocks_swept"]
+            < bb["noise_map"]["bb_blocks_swept"] and bb["hit_image_launches"]
+            and bb["csm_sweep_launches"]):
+        raise AssertionError(f"eval_bb_pyramid: {bb}")
+    out["eval_bb_pyramid"] = bb
+
+    csm_cuda.LAUNCHES = 0
+    scaling = eval_scaling.run(device, [1])
+    scaling["csm_sweep_launches"] = csm_cuda.LAUNCHES
+    print(f"eval_scaling {json.dumps(scaling)}", flush=True)
+    r = scaling["results"][0]
+    if not (r["devices"] == 1 and r["loop_candidates_per_s"] > 0
+            and r["schur_lm_iterations"] >= 1
+            and scaling["csm_sweep_launches"] > 0):
+        raise AssertionError(f"eval_scaling: {scaling}")
+    out["eval_scaling"] = scaling
+
+    pipe = eval_scaling_pipeline.run(device)
+    print(f"eval_scaling_pipeline {json.dumps(pipe)}", flush=True)
+    if not (pipe["ate_identical"] and pipe["trajectory_identical"]
+            and pipe["ranks_bitwise_equal"]
+            and pipe["p1"]["keyframes"] == pipe["p2"]["keyframes"]
+            and min(pipe["p2"]["csm_sweep_launches"]) > 0):
+        raise AssertionError(f"eval_scaling_pipeline: {pipe}")
+    out["eval_scaling_pipeline"] = pipe
     return out
+
+
+# Phase 14: the f32-map matches against the u8 matches of the same query,
+# fixed before the first run: the same found flag, and where both found a
+# pose, within one cell (0.05 m) and 0.02 rad (a few theta steps at the
+# loop window): the u8 map moves each probability by at most 1/510, which
+# may move a near-tie argmax by a cell.  The queries matched on the CPU as
+# well, poses bitwise equal.
+F32_U8_TOL_XY = 0.05
+F32_U8_TOL_THETA = 0.02
+F32_CPU_QUERIES = 4
+
+
+def _f32_matchers(device, mcfg):
+    """The phase-14 matchers on ``device``: the batched loop detector's
+    correlative config at "highest" and "split" and with the gather sweep
+    backend (the whole map as the window), the grid search at the
+    reference's steps (phase 9's) and branch-and-bound at the
+    ``BranchBoundConfig`` defaults (phase 5's)."""
+    import dataclasses
+
+    from my_lidar_graph_slam_v2_tpu_torch.matching.branch_bound import (
+        BranchBoundConfig,
+        ScanMatcherBranchBound,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.matching.correlative import (
+        ScanMatcherCorrelative,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.matching.grid_search import (
+        GridSearchConfig,
+        ScanMatcherGridSearch,
+    )
+
+    tag = device.type
+    return {
+        "correlative_highest": ScanMatcherCorrelative(
+            dataclasses.replace(mcfg, precision="highest"), device,
+            name=f"F32Maps.{tag}.CorrelativeHighest"),
+        "correlative_split": ScanMatcherCorrelative(
+            dataclasses.replace(mcfg, precision="split"), device,
+            name=f"F32Maps.{tag}.CorrelativeSplit"),
+        "correlative_gather": ScanMatcherCorrelative(
+            dataclasses.replace(mcfg, sweep_backend="gather"), device,
+            name=f"F32Maps.{tag}.CorrelativeGather"),
+        "grid_search": ScanMatcherGridSearch(GridSearchConfig(), device),
+        "branch_bound": ScanMatcherBranchBound(BranchBoundConfig(), device),
+    }
+
+
+def _raster_on(raster, device):
+    from my_lidar_graph_slam_v2_tpu_torch.matching.types import MapRaster
+
+    return MapRaster(raster.prob.to(device), raster.observed.to(device),
+                     raster.resolution, raster.offset_xy)
+
+
+def check_f32_maps(device, phase7):
+    """Phase 14: f32 maps at full width.  Config #3's world through the
+    default backend (phase 7's system) with finished maps kept as f32
+    log-odds, so each loop query of phase 7 (captured with its map-local
+    pose as the detector got it) can be matched against its local map as
+    an f32 probability raster (``rasterize.prob_map``, 1024 x 1024 at
+    5 cm) and as the map cache's u8 raster.  Matchers: the batched loop
+    detector's correlative config (2.5 m x 2.5 m x 0.5 rad, crop 448,
+    T 208) at "highest" and "split" and with the gather backend, the grid
+    search at phase 9's steps and branch-and-bound at phase 5's config,
+    each at the detector's
+    thresholds.  Per match: host ms (its fetch synchronizes), f32 and u8
+    sweep launches and hit-image launches; :data:`F32_CPU_QUERIES`
+    queries (those the u8 match found a pose for first) also on the
+    CPU."""
+    from my_lidar_graph_slam_v2_tpu_torch.core import pose as P
+    from my_lidar_graph_slam_v2_tpu_torch.loop.detector import scan_to_arrays
+    from my_lidar_graph_slam_v2_tpu_torch.matching.types import (
+        MapRaster,
+        ScanMatchingQuery,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.metrics.registry import (
+        MetricManager,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.ops import (
+        csm_cuda,
+        hit_images_cuda,
+        rasterize,
+    )
+
+    seq = build_loop_sequence()
+    queries = []
+
+    def capture(slam):
+        det = slam.backend.loop_detector
+        detect = det.detect
+
+        def captured(qs):
+            for q in qs:
+                queries.append(dict(
+                    local_map=q["local_map"], scan=q["query_node"].scan_data,
+                    pose=P.inverse_compound(q["local_map_node"].global_pose,
+                                            q["query_node"].global_pose)))
+            return detect(qs)
+
+        det.detect = captured
+        return []
+
+    run = run_loop_slice(device, seq, stages=capture,
+                         make_slam=default_loop_slam,
+                         builder_overrides=dict(compact_finished_maps=False))
+    if run["loops"] != phase7["loops"] or len(run["est"]) != len(
+            phase7["est"]):
+        raise AssertionError("the uncompacted run differs from phase 7's")
+    det = run["slam"].backend.loop_detector
+    thr = (float(np.float32(det.cfg.score_threshold)),
+           float(np.float32(det.cfg.known_rate_threshold)))
+    rasters = {}
+
+    def rasters_of(lm):
+        if lm.local_map_id not in rasters:
+            rasters[lm.local_map_id] = (
+                MapRaster(rasterize.prob_map(lm.logodds, lm.observed),
+                          lm.observed, det.resolution, lm.offset_xy),
+                det.map_cache.raster(lm))
+        return rasters[lm.local_map_id]
+
+    gpu_m = _f32_matchers(device, det.mcfg)
+    u8_ref = dict(correlative=gpu_m["correlative_split"],
+                  grid_search=gpu_m["grid_search"],
+                  branch_bound=gpu_m["branch_bound"])
+    counters = MetricManager.instance()
+
+    def reruns(m):
+        name = getattr(m, "name", None)
+        return counters.counter(f"{name}.DenseFallbacks").value if name else 0
+
+    rows = {name: [] for name in gpu_m}
+    cpu_m = _f32_matchers(torch.device("cpu"), det.mcfg)
+    cpu_equal = 0
+    # The card's half: every query, the u8 matches first.
+    for q in queries:
+        f32_raster, u8_raster = rasters_of(q["local_map"])
+        arrays = scan_to_arrays(q["scan"], det.cfg.beam_capacity, device)
+        u8 = {k: m.optimize_pose(ScanMatchingQuery(u8_raster, arrays,
+                                                   q["pose"]), *thr)
+              for k, m in u8_ref.items()}
+        for name, m in gpu_m.items():
+            n0 = (csm_cuda.F32_LAUNCHES, csm_cuda.LAUNCHES,
+                  hit_images_cuda.LAUNCHES, reruns(m))
+            t = time.perf_counter()
+            r = m.optimize_pose(ScanMatchingQuery(f32_raster, arrays,
+                                                  q["pose"]), *thr)
+            ms = (time.perf_counter() - t) * 1e3
+            ref = u8[name.split("_")[0] if name.startswith("corr")
+                     else name]
+            d = np.abs(np.asarray(r.estimated_pose)
+                       - np.asarray(ref.estimated_pose))
+            rows[name].append(dict(
+                ms=ms, f32=csm_cuda.F32_LAUNCHES - n0[0],
+                u8=csm_cuda.LAUNCHES - n0[1],
+                hits=hit_images_cuda.LAUNCHES - n0[2], reruns=reruns(m) - n0[3],
+                found=r.pose_found, found_u8=ref.pose_found,
+                dxy=float(d[:2].max()) if r.pose_found and ref.pose_found
+                else 0.0,
+                dtheta=float(d[2]) if r.pose_found and ref.pose_found
+                else 0.0,
+                pose=np.asarray(r.estimated_pose)))
+    # The CPU half: the first queries the u8 loop match found a pose for,
+    # then the others in order.
+    found = [i for i in range(len(queries))
+             if rows["correlative_split"][i]["found_u8"]]
+    cpu_queries = (found + [i for i in range(len(queries))
+                            if i not in found])[:F32_CPU_QUERIES]
+    for i in cpu_queries:
+        q = queries[i]
+        cpu_arrays = scan_to_arrays(q["scan"], det.cfg.beam_capacity, "cpu")
+        cpu_raster = _raster_on(rasters_of(q["local_map"])[0], "cpu")
+        for name, m in cpu_m.items():
+            r = m.optimize_pose(ScanMatchingQuery(cpu_raster, cpu_arrays,
+                                                  q["pose"]), *thr)
+            g = rows[name][i]
+            if r.pose_found != g["found"] or not np.array_equal(
+                    np.asarray(r.estimated_pose), g["pose"]):
+                raise AssertionError(
+                    f"f32 maps, query {i}, {name}: cuda {g['pose']} found "
+                    f"{g['found']}, cpu {r.estimated_pose} found "
+                    f"{r.pose_found}")
+        cpu_equal += 1
+
+    stats = dict(queries=len(queries), keyframes=len(run["est"]),
+                 loop_edges=len(run["loops"]),
+                 queries_bitwise_equal_on_cpu=cpu_equal,
+                 cpu_queries=cpu_queries,
+                 cpu_queries_found=sum(i in found for i in cpu_queries),
+                 matchers={})
+    for name, rs in rows.items():
+        n = len(rs)
+        stats["matchers"][name] = dict(
+            matches=n, ms_median=statistics.median(r["ms"] for r in rs),
+            f32_launches_per_match=sum(r["f32"] for r in rs) / n,
+            u8_launches_per_match=sum(r["u8"] for r in rs) / n,
+            hit_image_launches_per_match=sum(r["hits"] for r in rs) / n,
+            dense_reruns=sum(r["reruns"] for r in rs),
+            found=sum(r["found"] for r in rs),
+            found_u8=sum(r["found_u8"] for r in rs),
+            max_dxy_vs_u8_m=max(r["dxy"] for r in rs),
+            max_dtheta_vs_u8_rad=max(r["dtheta"] for r in rs))
+    stats["f32_sweep_launches"] = sum(r["f32"] for rs in rows.values()
+                                      for r in rs)
+    print(f"f32_maps {json.dumps(stats)}", flush=True)
+    if len(queries) < F32_CPU_QUERIES or cpu_equal < F32_CPU_QUERIES:
+        raise AssertionError(f"{len(queries)} queries, {cpu_equal} on the CPU")
+    for name, rs in rows.items():
+        want_f32 = {"grid_search": 1, "branch_bound": 0}.get(name, 2)
+        for r in rs:
+            if (r["f32"] != want_f32 * (1 + r["reruns"]) or r["u8"]
+                    or r["hits"] != (name == "branch_bound")):
+                raise AssertionError(f"f32 maps, {name}: launches {r}")
+            if r["found"] != r["found_u8"]:
+                raise AssertionError(f"f32 maps, {name}: found {r['found']}, "
+                                     f"u8 {r['found_u8']}")
+            if r["dxy"] > F32_U8_TOL_XY or r["dtheta"] > F32_U8_TOL_THETA:
+                raise AssertionError(f"f32 maps, {name}: pose off the u8 "
+                                     f"match's by {r['dxy']}, {r['dtheta']}")
+    return stats
+
+
+def gather_loop_slam(device, **factory_kw):
+    """Phase 6's system with the loop matcher's ``sweep_backend="gather"``:
+    the serial correlative detector at the factory's window, its fused
+    matcher rebuilt at the same configs but for the backend, each sweep
+    over the whole (pooled) map with no crop."""
+    import dataclasses
+
+    from my_lidar_graph_slam_v2_tpu_torch.models.fused_matcher import (
+        FusedCorrelativeGNMatcher,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.pipeline.factory import (
+        create_default_backend,
+        create_default_slam,
+    )
+
+    backend = create_default_backend(device=device, sharded=False,
+                                     searcher_overrides=LOOP_SEARCHER)
+    det = backend.loop_detector
+    m = det.scan_matcher
+    det.scan_matcher = FusedCorrelativeGNMatcher(
+        dataclasses.replace(m.ccfg, sweep_backend="gather"), m.lcfg, device,
+        name=m.name, final_name="LoopDetector.FinalScanMatcherLinearSolver")
+    return create_default_slam(device=device, backend=backend, **factory_kw)
+
+
+# Phases 15 and 16: the ATE within this of the phase each one varies.
+BACKEND_ATE_TOL = 0.005
+
+
+def check_gather_loop_slice(device, serial):
+    """Phase 15: phase 6's slice with the gather sweep backend, on the card
+    (the counts set to 0 just before and read just after) and on the CPU:
+    the same keyframes as phase 6 (``serial``), at least one loop edge, the
+    same keyframes, loop edges and bitwise poses on both devices, ATE below
+    odometry's and within 0.005 m of phase 6's, two sweep launches per loop
+    match or more (dense re-runs); prints loop edges and ms per match
+    beside phase 6's."""
+    from my_lidar_graph_slam_v2_tpu_torch.datasets import synthetic
+    from my_lidar_graph_slam_v2_tpu_torch.ops import csm_cuda
+
+    seq = build_loop_sequence()
+
+    def stages(slam):
+        return [(slam.backend.loop_detector.scan_matcher, "optimize_pose",
+                 "loop match", False),
+                (slam.backend, "run_step", "backend step", False)]
+
+    kw = dict(make_slam=gather_loop_slam, stages=stages)
+    csm_cuda.LAUNCHES = csm_cuda.F32_LAUNCHES = 0
+    gpu = run_loop_slice(device, seq, count=lambda: csm_cuda.LAUNCHES, **kw)
+    sweep_launches, f32_launches = csm_cuda.LAUNCHES, csm_cuda.F32_LAUNCHES
+    cpu = run_loop_slice("cpu", seq, **kw)
+
+    n_kf = len(gpu["est"])
+    matches = gpu["stages"].get("loop match", (0, [0.0], 0))
+    odom = np.stack([s.odom_pose for s in seq.scans])
+    ate = synthetic.ate_rmse(gpu["est"], gpu["gt"])
+    ate_odom = synthetic.ate_rmse(odom, seq.ground_truth)
+    same_kf = len(cpu["est"]) == n_kf
+    stats = dict(
+        keyframes=n_kf, keyframes_cpu=len(cpu["est"]),
+        keyframes_phase6=serial["keyframes"],
+        loop_edges=len(gpu["loops"]), loop_edges_cpu=len(cpu["loops"]),
+        loop_edges_phase6=serial["loop_edges"],
+        ate_m=ate, ate_cpu_m=synthetic.ate_rmse(cpu["est"], cpu["gt"]),
+        ate_phase6_m=serial["ate_m"], ate_odom_m=ate_odom,
+        loop_matches=matches[0], csm_sweep_launches=sweep_launches,
+        f32_sweep_launches=f32_launches,
+        loop_match_sweep_launches=matches[2],
+        loop_match_ms_median=statistics.median(matches[1]),
+        loop_match_ms_median_phase6=serial["loop_match_ms_median"],
+        wall_s=gpu["wall"], cpu_wall_s=cpu["wall"],
+        poses_bitwise_equal=same_kf and np.array_equal(gpu["est"], cpu["est"]),
+    )
+    print(f"gather_loop_slice {json.dumps(stats)}", flush=True)
+    if n_kf != serial["keyframes"] or matches[0] < 1 or not gpu["loops"]:
+        raise AssertionError(
+            f"{n_kf} keyframes (phase 6: {serial['keyframes']}), "
+            f"{matches[0]} loop matches, {len(gpu['loops'])} loop edges")
+    if matches[2] < 2 * matches[0]:
+        raise AssertionError(
+            f"{matches[2]} sweep launches in {matches[0]} loop matches")
+    if not same_kf or gpu["loops"] != cpu["loops"]:
+        raise AssertionError(
+            f"cuda and cpu differ: keyframes {n_kf} / {len(cpu['est'])}, "
+            f"loop edges {gpu['loops']} / {cpu['loops']}")
+    if not stats["poses_bitwise_equal"]:
+        d = np.abs(gpu["est"] - cpu["est"])
+        raise AssertionError(
+            f"cuda and cpu poses differ: dxy {d[:, :2].max()}, dtheta "
+            f"{d[:, 2].max()}")
+    if not (np.all(np.isfinite(gpu["est"])) and ate < ate_odom
+            and abs(ate - serial["ate_m"]) <= BACKEND_ATE_TOL):
+        raise AssertionError(f"ATE {ate}: odometry {ate_odom}, phase 6 "
+                             f"{serial['ate_m']}")
+    return stats
+
+
+def check_scatter_slice(device, frontend):
+    """Phase 16: phase 4's frontend slice (48 keyframes) with
+    ``rasterize_backend="scatter"`` on the card (the counts set to 0 just
+    before and read just after) and on the CPU: phase 4's keyframes,
+    bitwise-equal poses on both devices, ATE below odometry's and within
+    0.005 m of phase 4's (``frontend``); prints ms per keyframe beside
+    phase 4's."""
+    from my_lidar_graph_slam_v2_tpu_torch.datasets import synthetic
+    from my_lidar_graph_slam_v2_tpu_torch.ops import csm_cuda
+
+    seq = build_sequence(KEYFRAMES)
+    kw = dict(builder_overrides=dict(rasterize_backend="scatter"))
+    csm_cuda.LAUNCHES = 0
+    gpu = run_slice(device, seq, **kw)
+    launches = csm_cuda.LAUNCHES
+    cpu = run_slice("cpu", seq, **kw)
+    n_kf = len(gpu["est"])
+    odom = np.stack([s.odom_pose for s in seq.scans])
+    ate = synthetic.ate_rmse(gpu["est"], gpu["gt"])
+    ate_odom = synthetic.ate_rmse(odom, seq.ground_truth)
+    same_kf = len(cpu["est"]) == n_kf
+    stats = dict(
+        keyframes=n_kf, keyframes_cpu=len(cpu["est"]),
+        keyframes_phase4=frontend["keyframes"], wall_s=gpu["wall"],
+        ms_per_keyframe=1e3 * gpu["wall"] / n_kf,
+        ms_per_keyframe_phase4=frontend["ms_per_keyframe"],
+        keyframe_ms_median=statistics.median(gpu["kf_ms"][1:]),
+        keyframe_ms_median_phase4=frontend["keyframe_ms_median"],
+        cpu_ms_per_keyframe=1e3 * cpu["wall"] / max(len(cpu["est"]), 1),
+        launches=launches, ate_m=ate, ate_phase4_m=frontend["ate_m"],
+        ate_odom_m=ate_odom,
+        poses_bitwise_equal=same_kf and np.array_equal(gpu["est"], cpu["est"]),
+    )
+    print(f"scatter_slice {json.dumps(stats)}", flush=True)
+    if n_kf != frontend["keyframes"] or not same_kf:
+        raise AssertionError(f"keyframes: cuda {n_kf}, cpu {len(cpu['est'])}"
+                             f", phase 4 {frontend['keyframes']}")
+    if not stats["poses_bitwise_equal"]:
+        d = np.abs(gpu["est"] - cpu["est"])
+        raise AssertionError(
+            f"cuda and cpu poses differ: dxy {d[:, :2].max()}, dtheta "
+            f"{d[:, 2].max()}")
+    if not (np.all(np.isfinite(gpu["est"])) and ate < ate_odom
+            and abs(ate - frontend["ate_m"]) <= BACKEND_ATE_TOL):
+        raise AssertionError(f"ATE {ate}: odometry {ate_odom}, phase 4 "
+                             f"{frontend['ate_m']}")
+    if launches < 2 * (n_kf - 1):
+        raise AssertionError(f"{launches} sweep launches for {n_kf} "
+                             "keyframes")
+    return stats
 
 
 def _kernel_line(rows, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
@@ -1685,8 +2196,8 @@ def main() -> int:
     print(f"device: {smi}", flush=True)
 
     t0 = time.perf_counter()
-    built = cuda_build.build("csm_sweep", "hit_images")
-    print(f"build: both kernels in {time.perf_counter() - t0:.2f} s", flush=True)
+    built = cuda_build.build("csm_sweep", "csm_sweep_f32", "hit_images")
+    print(f"build: all kernels in {time.perf_counter() - t0:.2f} s", flush=True)
     for name, info in built.items():
         print(f"build: {info['path'].name} in {info['seconds']:.2f} s "
               f"(cached={info['cached']})", flush=True)
@@ -1694,8 +2205,9 @@ def main() -> int:
             print(f"  nvcc: {line}")
 
     shapes = check_kernel(device)
+    f32_shapes = check_f32_kernel(device)
     hit_shapes = check_hit_kernel(device)
-    _, frontend_launches = check_slice(device)
+    frontend, frontend_launches = check_slice(device)
     loop = check_loop_slice(device)
     corr = check_correlative_loop_slice(device)
     batched, phase7 = check_batched_loop_slice(device, corr)
@@ -1707,12 +2219,17 @@ def main() -> int:
     two = check_two_ranks(device, phase7, batched, dist_run["slam"])
     h2h = check_head_to_head()
     scripts = check_scripts(device)
+    f32_maps = check_f32_maps(device, phase7)
+    gather = check_gather_loop_slice(device, corr)
+    scatter = check_scatter_slice(device, frontend)
 
     # Top-level times: the frontend's two sweeps of a keyframe (coarse +
-    # fine) and branch-and-bound's hit images; every shape is in "shapes".
+    # fine), one f32-map correlative loop match's two sweeps and
+    # branch-and-bound's hit images; every shape is in "shapes".
     # "launches" is the main path's: create_default_slam with the default
-    # (batched) backend, phase 7.
-    frontend = [r for r in shapes if r["shape"] in ("coarse", "fine")]
+    # (batched) backend, phase 7; for the f32 sweep its own path, the
+    # f32-map matches of phase 14.
+    frontend_rows = [r for r in shapes if r["shape"] in ("coarse", "fine")]
     bb_shape = [r for r in hit_shapes if r["shape"] == "branch_bound"]
     print(json.dumps({"kernels": [
         dict(
@@ -1738,10 +2255,32 @@ def main() -> int:
                 bench_csm=scripts["bench_csm"]["csm_sweep_launches"],
                 eval_ate={r["config"]: r["csm_sweep_launches"]
                           for r in scripts["eval_ate"]},
-                bench_e2e=scripts["bench_e2e"]["csm_sweep_launches"]),
+                bench_e2e=scripts["bench_e2e"]["csm_sweep_launches"],
+                eval_bb_pyramid=scripts["eval_bb_pyramid"][
+                    "csm_sweep_launches"],
+                eval_scaling=scripts["eval_scaling"]["csm_sweep_launches"],
+                eval_scaling_pipeline=scripts["eval_scaling_pipeline"]["p2"][
+                    "csm_sweep_launches"],
+                gather_loop=gather["csm_sweep_launches"],
+                scatter_frontend=scatter["launches"]),
             max_abs_err=max(r["max_abs_err"] for r in shapes),
-            **_kernel_line(frontend),
+            **_kernel_line(frontend_rows),
             shapes=shapes,
+        ),
+        dict(
+            name="csm_sweep_f32",
+            route="cuda",
+            source="my_lidar_graph_slam_v2_tpu_torch/csrc/csm_sweep_f32.cu",
+            replaces="my_lidar_graph_slam_v2_tpu/ops/csm_pallas.py:86",
+            launches=f32_maps["f32_sweep_launches"],
+            launches_by_path=dict(
+                f32_maps={k: m["f32_launches_per_match"] * m["matches"]
+                          for k, m in f32_maps["matchers"].items()},
+                gather_loop=gather["f32_sweep_launches"]),
+            max_abs_err=max(r["max_abs_err"] for r in f32_shapes),
+            **_kernel_line([r for r in f32_shapes
+                            if r["shape"] in ("loop_coarse", "loop_fine")]),
+            shapes=f32_shapes,
         ),
         dict(
             name="hit_images",

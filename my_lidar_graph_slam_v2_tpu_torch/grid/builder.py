@@ -57,16 +57,17 @@ class GridMapBuilderConfig:
     samples_per_beam: int = 768
     latest_map_incremental: bool = True
     latest_map_shift_pad: int = 256
-    # "matmul" is the JAX package's exact-count form with its crop window,
-    # the only form ported (ops/rasterize.py).
+    # How a scan's misses reach the raster (ops/rasterize.py): "matmul",
+    # exact counts times the weight inside a crop window, or "scatter",
+    # one add per miss sample over the whole raster.
     rasterize_backend: str = "matmul"
     compact_finished_maps: bool = True
 
     def __post_init__(self):
-        if self.rasterize_backend != "matmul":
-            raise NotImplementedError(
-                f"rasterize_backend={self.rasterize_backend!r} is not "
-                "ported (ROADMAP item 1.9); use 'matmul'"
+        if self.rasterize_backend not in rasterize.BACKENDS:
+            raise ValueError(
+                f"rasterize_backend={self.rasterize_backend!r}: one of "
+                f"{rasterize.BACKENDS}"
             )
 
     @property
@@ -287,6 +288,7 @@ class GridMapBuilder:
             cfg.logodds_miss,
             num_samples=cfg.samples_per_beam,
             crop=min(cfg.rasterize_crop, min(lo.shape)),
+            backend=cfg.rasterize_backend,
         )
         self._oob_dev = n_oob if self._oob_dev is None else self._oob_dev + n_oob
         return lo, obs
@@ -557,6 +559,7 @@ class GridMapBuilder:
             num_samples=cfg.samples_per_beam,
             crop=min(cfg.rasterize_crop, cfg.latest_map_rows,
                      cfg.latest_map_cols),
+            backend=cfg.rasterize_backend,
         )
 
     def prefill_latest_delta(self, pose_graph: PoseGraph):

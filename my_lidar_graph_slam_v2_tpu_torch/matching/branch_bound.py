@@ -75,12 +75,10 @@ def branch_bound_core(cfg: BranchBoundConfig, prob, observed, pyr_p, pyr_o,
                       score_threshold, known_rate_threshold):
     """Port of ``_branch_bound_core``: returns ``(pose, score, found, cost
     / n, cov)`` as device tensors and ``stats`` (blocks swept, host
-    fetches made)."""
-    if prob.dtype != torch.uint8 or cfg.precision == "highest":
-        raise NotImplementedError(
-            "the port's branch-and-bound matches u8 maps with a non-"
-            "'highest' precision only (ROADMAP item 1.4)"
-        )
+    fetches made).  u8 or f32 maps: the bound and block sweeps are
+    ``ops/csm.py:sweep_from_hits`` at the configured precision (f32 on a
+    u8 window, f64 on an f32 one, exact either way)."""
+    csm.check_precision(cfg.precision)
     dev = prob.device
     wx, wy = cfg.win_cells
     nbx, nby = cfg.blocks

@@ -7,13 +7,21 @@ scored by a strided coarse sweep and a stride-1 fine sweep
 blocks, and the winner picked by a masked argmax with the reference's
 (theta, x, y) tie-break.
 
-Only the ``sweep_backend="matmul"`` branch is ported, on u8 maps; that is
-every map the frontend matches against.  The top-K theta prune and the
-top-B block prune are certified exactly as in the JAX package, and the
-int8 multiplicity certificate is kept so ``exact`` (and with it the
-dense re-runs) matches the reference.  Top-K uses a stable descending
-sort: ``jax.lax.top_k`` puts the lower index first on ties, and coarse
-bounds, multiples of 1/255, tie often.
+Both sweep backends of the JAX package: ``"matmul"`` (the default:
+beam cells in a crop, a pooled coarse window, the top-K theta and top-B
+block prunes) and ``"gather"`` (the semantics oracle: map cells with no
+crop, the coarse sweep on the full sliding-window-max map, the top-K
+thetas over the whole fine window).  Both run through ``ops/csm.py:sweep``
+(on the card one launch per sweep of the window type's kernel): u8 maps
+as u8 windows, f32 maps and ``precision="highest"`` as f32 windows rounded
+at the configured precision (the gather backend's are not rounded, as the
+JAX gathers contract in f32 at any precision).  The prunes are certified
+exactly as in the JAX package, and the int8 multiplicity certificate is
+kept where the JAX package takes its int8 sweep (u8 maps, not
+``"highest"``, matmul backend) so ``exact`` (and with it the dense
+re-runs) matches the reference.  Top-K uses a stable descending sort:
+``jax.lax.top_k`` puts the lower index first on ties, and coarse bounds,
+multiples of 1/255, tie often.
 """
 from __future__ import annotations
 
@@ -115,15 +123,10 @@ def correlative_core_batch(cfg: CorrelativeConfig, prob, observed,
     candidate axis, so each row equals the single-candidate call.  Returns
     the 9-tuple (pose, score, known, found, cost / n, cov, n_processed,
     n_total, exact) with a leading ``N`` axis, on the device."""
-    if cfg.sweep_backend != "matmul":
-        raise NotImplementedError(
-            "sweep_backend='gather' is not ported (ROADMAP item 1.7)"
-        )
-    if prob.dtype != torch.uint8 or cfg.precision == "highest":
-        raise NotImplementedError(
-            "the port's correlative core matches u8 maps with a non-"
-            "'highest' precision only (ROADMAP item 1.4)"
-        )
+    if cfg.sweep_backend not in ("matmul", "gather"):
+        raise ValueError(f"unknown sweep_backend {cfg.sweep_backend!r}")
+    gather = cfg.sweep_backend == "gather"
+    exact_u8 = csm.u8_exact(prob, cfg.precision)
     dev = prob.device
     N = ranges.shape[0]
     wx, wy = cfg.win_cells
@@ -141,37 +144,60 @@ def correlative_core_batch(cfg: CorrelativeConfig, prob, observed,
     norm4 = norm[:, None, None, None]
     x0, y0 = -wx, -wy
 
-    hr, hc, valid, r0, c0 = csm.beam_cells(
-        ranges, angles, mask, sensor_pose, theta0, step_theta, theta_mask,
-        cfg.resolution, offset_xy, n_theta=T, crop_rows=CR, crop_cols=CC,
-    )  # [N, T, B], [N]
-    ok_tb = valid & theta_mask[:, :, None]
-    use_int8 = (not dense) and cfg.coarse_int8
-    if use_int8:
-        int8_ok = csm.max_hit_multiplicity(hr, hc, ok_tb, crop_cols=CC) <= 127
-
-    # Coarse window: pooled over the crop only (pool-on-crop) unless the
-    # caller holds full pooled maps.  Both give the same values.
-    in_rows, in_cols = CR + (nby - 1) * LR, CC + (nbx - 1) * LR
-    if coarse_prob is None:
-        seg = csm.sweep_input_window(
-            prob, observed, r0, c0, x0, y0, map_index=map_index,
-            in_rows=in_rows + LR - 1, in_cols=in_cols + LR - 1,
-        )
-        pooled = pool.sliding_window_max2d(seg.permute(0, 3, 1, 2), LR)
-        coarse_inp = pooled.permute(0, 2, 3, 1)[:, :in_rows, :in_cols]
+    if gather:
+        # Map cells shared by both sweeps, no crop; the coarse sweep reads
+        # the full sliding-window-max maps.
+        if coarse_prob is None:
+            coarse_prob = pool.sliding_window_max2d(prob, LR)
+            coarse_observed = pool.sliding_window_max2d(observed, LR)
+        hr, hc, ok_tb = csm.beam_cells_abs(
+            ranges, angles, mask, sensor_pose, theta0, step_theta,
+            theta_mask, cfg.resolution, offset_xy, n_theta=T,
+        )  # [N, T, B]
+        c_scores, c_known = csm.sweep_windows(
+            coarse_prob, coarse_observed, hr, hc, ok_tb, y0, x0,
+            ny=nby, nx=nbx, stride=LR, map_index=map_index,
+        )  # [N, T, nby, nbx]
     else:
-        coarse_inp = csm.sweep_input_window(
-            coarse_prob, coarse_observed, r0, c0, x0, y0,
-            map_index=map_index, in_rows=in_rows, in_cols=in_cols,
-        )
-    origin = torch.zeros((N, 1, 2), dtype=torch.int32, device=dev)
-    c = csm.sweep(
-        coarse_inp.contiguous(), hr, hc, ok_tb, origin,
-        tile_h=nby, tile_w=nbx, stride=LR,
-    )  # [N, T, 2, nby * nbx]
-    c_scores = c[:, :, 0].reshape(N, T, nby, nbx)
-    c_known = c[:, :, 1].reshape(N, T, nby, nbx)
+        hr, hc, valid, r0, c0 = csm.beam_cells(
+            ranges, angles, mask, sensor_pose, theta0, step_theta,
+            theta_mask, cfg.resolution, offset_xy, n_theta=T, crop_rows=CR,
+            crop_cols=CC,
+        )  # [N, T, B], [N]
+        ok_tb = valid & theta_mask[:, :, None]
+        use_int8 = (not dense) and cfg.coarse_int8 and exact_u8
+        if use_int8:
+            int8_ok = csm.max_hit_multiplicity(hr, hc, ok_tb,
+                                               crop_cols=CC) <= 127
+
+        # Coarse window: pooled over the crop only (pool-on-crop) unless
+        # the caller holds full pooled maps.  Both give the same values:
+        # an f32 window is pooled unrounded and rounded after, as the JAX
+        # package rounds the pooled window.
+        in_rows, in_cols = CR + (nby - 1) * LR, CC + (nbx - 1) * LR
+        if coarse_prob is None:
+            seg = csm.sweep_input_window(
+                prob, observed, r0, c0, x0, y0, map_index=map_index,
+                in_rows=in_rows + LR - 1, in_cols=in_cols + LR - 1,
+                precision=cfg.precision if exact_u8 else "highest",
+            )
+            pooled = pool.sliding_window_max2d(seg.permute(0, 3, 1, 2), LR)
+            coarse_inp = csm.round_window(
+                pooled.permute(0, 2, 3, 1)[:, :in_rows, :in_cols],
+                cfg.precision)
+        else:
+            coarse_inp = csm.sweep_input_window(
+                coarse_prob, coarse_observed, r0, c0, x0, y0,
+                map_index=map_index, in_rows=in_rows, in_cols=in_cols,
+                precision=cfg.precision,
+            )
+        origin = torch.zeros((N, 1, 2), dtype=torch.int32, device=dev)
+        c = csm.sweep(
+            coarse_inp.contiguous(), hr, hc, ok_tb, origin,
+            tile_h=nby, tile_w=nbx, stride=LR,
+        )  # [N, T, 2, nby * nbx]
+        c_scores = c[:, :, 0].reshape(N, T, nby, nbx)
+        c_known = c[:, :, 1].reshape(N, T, nby, nbx)
 
     # Reference gating (scan_matcher_correlative.cpp:178-189)
     block_ok = (
@@ -194,7 +220,8 @@ def correlative_core_batch(cfg: CorrelativeConfig, prob, observed,
     R = ok_rows.shape[1]
 
     n_blocks = nby * nbx
-    use_blocks = (not dense) and 0 < cfg.fine_block_b < n_blocks
+    use_blocks = (not dense and not gather
+                  and 0 < cfg.fine_block_b < n_blocks)
     if use_blocks:
         # Top-B coarse-block prune: sweep only the offsets of the B blocks
         # with the largest gated coarse bound, one LR x LR tile each.
@@ -220,20 +247,27 @@ def correlative_core_batch(cfg: CorrelativeConfig, prob, observed,
     off = csm.tile_offsets(origins, tile_h=tile_h, tile_w=tile_w, stride=1)
     offs_y, offs_x = off[..., 0], off[..., 1]  # [N, n_off]
 
-    fine_inp = csm.sweep_input_window(
-        prob, observed, r0, c0, x0, y0, map_index=map_index,
-        in_rows=CR + nyf - 1, in_cols=CC + nxf - 1,
-    )
     if use_topk:
         sel3 = sel_theta[:, :, None]
         hr_s, hc_s, ok_s = (torch.take_along_dim(a, sel3, dim=1)
                             for a in (hr, hc, ok_tb))
     else:
         hr_s, hc_s, ok_s = hr, hc, ok_tb
-    f = csm.sweep(
-        fine_inp, hr_s, hc_s, ok_s, origins.to(torch.int32),
-        tile_h=tile_h, tile_w=tile_w, stride=1,
-    )  # [N, R, 2, n_off]
+    if gather:
+        f = torch.stack(csm.sweep_windows(
+            prob, observed, hr_s, hc_s, ok_s, y0, x0, ny=nyf, nx=nxf,
+            stride=1, map_index=map_index,
+        ), dim=2).reshape(N, R, 2, -1)
+    else:
+        fine_inp = csm.sweep_input_window(
+            prob, observed, r0, c0, x0, y0, map_index=map_index,
+            in_rows=CR + nyf - 1, in_cols=CC + nxf - 1,
+            precision=cfg.precision,
+        )
+        f = csm.sweep(
+            fine_inp, hr_s, hc_s, ok_s, origins.to(torch.int32),
+            tile_h=tile_h, tile_w=tile_w, stride=1,
+        )  # [N, R, 2, n_off]
     f_scores_f, f_known_f = f[:, :, 0], f[:, :, 1]
     n_off = f_scores_f.shape[2]
 
@@ -258,7 +292,7 @@ def correlative_core_batch(cfg: CorrelativeConfig, prob, observed,
         exact = exact & (best_sum >= kth_bound)
     if use_blocks:
         exact = exact & (best_sum >= blk_next_bound)
-    if use_int8:
+    if (not gather) and use_int8:
         exact = exact & int8_ok
 
     best_sensor_pose = torch.stack([

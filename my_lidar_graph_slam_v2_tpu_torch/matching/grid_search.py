@@ -11,9 +11,13 @@ shift: the whole grid is one ``ops/csm.py:sweep`` call, one stride-1 tile
 of (2 wy + 1) x (2 wx + 1) offsets over all 2 wt + 1 thetas (on the card
 one launch of ``csrc/csm_sweep.cu``).  Any other step moves each beam's
 floor cell by a fraction, so :func:`pixel_scores_gather` scores each
-candidate by a direct per-beam gather.  Both take u8 maps and sum levels
-as integers, one multiply by f32(1/255) at the end; the sweep's sums equal
-the JAX package's bit for bit.
+candidate by a direct per-beam gather.  On u8 maps both sum levels as
+integers, one multiply by f32(1/255) at the end (the sweep at any
+precision but ``"highest"``; its sums equal the JAX package's bit for
+bit).  The sweep on f32 maps or at ``"highest"`` takes the f32 window
+rounded at the configured precision, the gather f32 maps' values as they
+are (the JAX gather ignores the precision); both sum in f64 and round to
+f32 once, exactly, on either device.
 """
 from __future__ import annotations
 
@@ -73,26 +77,19 @@ def sweep_scores(cfg: GridSearchConfig, prob, observed, ranges, angles, mask,
                  sensor_pose, offset_xy):
     """Integer steps: (scores, known) f32 ``[T, ny, nx]`` from one sweep
     of one (2 wy + 1) x (2 wx + 1) stride-1 tile, the window's origin at
-    (-wx, -wy) cells from the crop anchor, all thetas valid (the JAX
-    package's ``csm_sweep`` call at ``grid_search.py:124-131``)."""
+    (-wx, -wy) cells from the crop anchor, all thetas valid: the JAX
+    package's ``csm_sweep`` call at ``grid_search.py:124-131``."""
     wx, wy, wt = cfg.wins
-    T, nx, ny = 2 * wt + 1, 2 * wx + 1, 2 * wy + 1
+    T = 2 * wt + 1
     dev = prob.device
-    CR, CC = cfg.crop_rows, cfg.crop_cols
-    hr, hc, valid, r0, c0 = csm.beam_cells(
-        ranges, angles, mask, sensor_pose,
+    return csm.csm_sweep(
+        prob, observed, ranges, angles, mask, sensor_pose,
         torch.full((), -wt, dtype=torch.int32, device=dev),
         f32(cfg.step_theta, dev), torch.ones(T, dtype=torch.bool, device=dev),
-        cfg.resolution, offset_xy, n_theta=T, crop_rows=CR, crop_cols=CC,
+        -wx, -wy, cfg.resolution, offset_xy, n_theta=T, nx=2 * wx + 1,
+        ny=2 * wy + 1, stride=1, crop_rows=cfg.crop_rows,
+        crop_cols=cfg.crop_cols, precision=cfg.precision,
     )
-    win = csm.sweep_input_window(prob, observed, r0, c0, -wx, -wy,
-                                 in_rows=CR + ny - 1, in_cols=CC + nx - 1)
-    out = csm.sweep(
-        win[None].contiguous(), hr[None], hc[None], valid[None],
-        torch.zeros((1, 1, 2), dtype=torch.int32, device=dev),
-        tile_h=ny, tile_w=nx, stride=1,
-    )[0]  # [T, 2, ny * nx]
-    return out[:, 0].reshape(T, ny, nx), out[:, 1].reshape(T, ny, nx)
 
 
 def pixel_scores_gather(cfg: GridSearchConfig, prob, observed, ranges, angles,
@@ -100,8 +97,9 @@ def pixel_scores_gather(cfg: GridSearchConfig, prob, observed, ranges, angles,
     """Arbitrary steps: (scores, known) f32 ``[T, ny, nx]``, each
     candidate's beams projected at its own fractional offset and read from
     the whole map (no crop; cells off the map read 0) — the JAX package's
-    ``_pixel_scores_gather``.  Levels are summed in int32 and scaled once
-    by f32(1/255); known is the count of observed cells."""
+    ``_pixel_scores_gather``.  u8 levels are summed in int32 and scaled
+    once by f32(1/255), f32 values summed in f64 and rounded once; known
+    is the count of observed cells."""
     wx, wy, wt = cfg.wins
     T, nx, ny = 2 * wt + 1, 2 * wx + 1, 2 * wy + 1
     dev = prob.device
@@ -111,9 +109,11 @@ def pixel_scores_gather(cfg: GridSearchConfig, prob, observed, ranges, angles,
     dx = (ar(nx) - wx) * cfg.step_x
     dy = (ar(ny) - wy) * cfg.step_y
     thetas = sensor_pose[2] + (ar(T) - wt) * cfg.step_theta
-    zero = torch.zeros(1, dtype=torch.int32, device=dev)
-    levels = torch.cat([prob.reshape(-1).to(torch.int32), zero])
-    seen = torch.cat([observed.reshape(-1).to(torch.int32), zero])
+    u8 = prob.dtype == torch.uint8
+    acc = torch.int32 if u8 else torch.float64
+    zero = torch.zeros(1, dtype=acc, device=dev)
+    levels = torch.cat([prob.reshape(-1).to(acc), zero])
+    seen = torch.cat([observed.reshape(-1).to(torch.int32), zero.int()])
     B = ranges.shape[0]
     step = max(1, _GATHER_CHUNK // (nx * ny * B))
     s_parts, k_parts = [], []
@@ -129,9 +129,11 @@ def pixel_scores_gather(cfg: GridSearchConfig, prob, observed, ranges, angles,
         )).to(torch.int32)  # [tc, 1, ny, B]
         ok = mask & (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h)
         idx = torch.where(ok, cy.long() * w + cx.long(), h * w)
-        s_parts.append(levels[idx].sum(-1, dtype=torch.int32))
+        s_parts.append(levels[idx].sum(-1, dtype=acc))
         k_parts.append(seen[idx].sum(-1, dtype=torch.int32))
-    scores = torch.cat(s_parts).to(torch.float32) * float(quant.INV255)
+    scores = torch.cat(s_parts).to(torch.float32)
+    if u8:
+        scores = scores * float(quant.INV255)
     known = torch.cat(k_parts).to(torch.float32)
     return scores.transpose(1, 2), known.transpose(1, 2)
 
@@ -140,12 +142,9 @@ def grid_search_core(cfg: GridSearchConfig, prob, observed, ranges, angles,
                      mask, sensor_pose, offset_xy, score_threshold,
                      known_rate_threshold):
     """Port of ``_grid_search_core``: (pose, score, found, cost / n, cov)
-    as device tensors, for one scan ``[B]`` on one u8 raster ``[H, W]``."""
-    if prob.dtype != torch.uint8 or cfg.precision == "highest":
-        raise NotImplementedError(
-            "the port's grid search matches u8 maps with a non-'highest' "
-            "precision only (ROADMAP item 1.4)"
-        )
+    as device tensors, for one scan ``[B]`` on one u8 or f32 raster ``[H,
+    W]``."""
+    csm.check_precision(cfg.precision)
     wx, wy, wt = cfg.wins
     nx, ny = 2 * wx + 1, 2 * wy + 1
     dev = prob.device

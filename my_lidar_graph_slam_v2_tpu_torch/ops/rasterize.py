@@ -6,15 +6,25 @@ rasters plus a bool observed mask; a scan's update is a raw delta image
 (``scan_delta``) folded in with a clipped Bayes step (``_apply_delta``).
 
 Free-space cells come from ``K`` samples per beam; each beam gives at
-most one miss per traversed cell and none at its hit cell.  Miss counts
-are exact int32 ``index_add_`` over the cells, then ONE multiply by
-``logodds_miss`` — the JAX package's default ``"matmul"`` form (exact
-one-hot count images times the weight), deterministic on CUDA, including
-its crop window: samples beyond ``crop`` cells of the valid-sample
-bounding box's low corner are not counted.  Hit cells add
-``count * logodds_hit``; where two or more beams hit one cell the JAX
-scatter adds ``logodds_hit`` in sequence, so those cells may differ in
-the last ulp.
+most one miss per traversed cell and none at its hit cell.  Two backends,
+the JAX package's names:
+
+- ``"matmul"`` (the builder's default): exact int32 miss counts over the
+  cells, then ONE multiply by ``logodds_miss``, as the JAX package's
+  one-hot count images times the weight; including its crop window:
+  samples beyond ``crop`` cells of the valid-sample bounding box's low
+  corner are not counted.
+- ``"scatter"``: ``logodds_miss`` added once per valid miss sample over
+  the whole raster (no crop), as the JAX scatter.
+
+Hit cells then add ``logodds_hit`` once per valid hit onto the miss image,
+as the JAX scatter does.  Every addend of one ``index_add_`` is the same
+f32 value, so every order of the adds (the CPU's loop, CUDA's atomics)
+performs the same sequence of roundings and gives the sequential sum: both
+backends equal the JAX package's bit for bit where the sample cells agree,
+on either device.  Unlike the JAX functions, whose default is
+``"scatter"``, :func:`scan_delta` and :func:`integrate_scans` default to
+the builder's ``"matmul"``.
 
 Out-of-range cells are masked and routed explicitly: torch indexing does
 not clamp or drop the way XLA gathers and scatters do.
@@ -36,12 +46,30 @@ def _cell_of(p, res, off):
     return rc[..., 1], rc[..., 0]
 
 
+def _flat_index(rows, cols, keep, h, w):
+    """Flat cell index of each kept (row, col), ``h * w`` (a spare slot
+    past the raster) for the others, so no mask goes through the host."""
+    return torch.where(keep, rows.long() * w + cols.long(), h * w).reshape(-1)
+
+
 def _count_cells(rows, cols, keep, h, w):
     """int32 [h, w] image counting the kept (row, col) cells."""
-    idx = torch.where(keep, rows.long() * w + cols.long(), h * w).reshape(-1)
+    idx = _flat_index(rows, cols, keep, h, w)
     counts = torch.zeros(h * w + 1, dtype=torch.int32, device=rows.device)
     counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
     return counts[: h * w].reshape(h, w)
+
+
+def _add_per_cell(image, rows, cols, keep, value):
+    """``image`` with the f32 ``value`` added once per kept (row, col), as
+    a scatter adds it: every addend is equal, so the sum does not depend
+    on the order of the adds."""
+    h, w = image.shape
+    idx = _flat_index(rows, cols, keep, h, w)
+    flat = torch.cat([image.reshape(-1), image.new_zeros(1)])
+    flat.index_add_(0, idx, torch.full(idx.shape, float(np.float32(value)),
+                                       dtype=torch.float32, device=idx.device))
+    return flat[: h * w].reshape(h, w)
 
 
 def _miss_counts(rows, cols, valid, h, w, crop):
@@ -60,8 +88,17 @@ def _miss_counts(rows, cols, valid, h, w, crop):
     return _count_cells(rows, cols, keep, h, w)
 
 
+BACKENDS = ("matmul", "scatter")
+
+
+def _check_backend(backend):
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown rasterize backend {backend!r}; one of "
+                         f"{BACKENDS}")
+
+
 def _delta_impl(h, w, s_xy, h_xy, mask, res, off, logodds_hit, logodds_miss,
-                num_samples, crop):
+                num_samples, crop, backend):
     """Raw (pre-clip) log-odds delta image of ONE scan."""
     dev = s_xy.device
     d = h_xy - s_xy[None, :]  # [B, 2]
@@ -81,28 +118,32 @@ def _delta_impl(h, w, s_xy, h_xy, mask, res, off, logodds_hit, logodds_miss,
     inside = (rows >= 0) & (rows < h) & (cols >= 0) & (cols < w)
     miss_valid = mask[:, None] & ~same_as_prev & ~is_hit_cell & inside
 
-    delta = _miss_counts(rows, cols, miss_valid, h, w, crop).to(
-        torch.float32
-    ) * float(np.float32(logodds_miss))
+    if backend == "scatter":
+        delta = _add_per_cell(
+            torch.zeros((h, w), dtype=torch.float32, device=dev),
+            rows, cols, miss_valid, logodds_miss)
+    else:
+        delta = _miss_counts(rows, cols, miss_valid, h, w, crop).to(
+            torch.float32
+        ) * float(np.float32(logodds_miss))
     hit_inside = mask & (hit_r >= 0) & (hit_r < h) & (hit_c >= 0) & (hit_c < w)
-    hits = _count_cells(hit_r, hit_c, hit_inside, h, w)
-    return torch.where(
-        hits > 0,
-        delta + hits.to(torch.float32) * float(np.float32(logodds_hit)),
-        delta,
-    )
+    return _add_per_cell(delta, hit_r, hit_c, hit_inside, logodds_hit)
 
 
 def scan_delta(shape, sensor_xy, hits_xy, hit_mask, resolution, offset_xy,
                logodds_hit, logodds_miss,
-               num_samples=DEFAULT_SAMPLES_PER_BEAM, crop=None):
+               num_samples=DEFAULT_SAMPLES_PER_BEAM, crop=None,
+               backend="matmul"):
     """Raw (pre-clip) log-odds delta image of one scan — the cacheable unit
-    of the incremental latest map (``grid/builder.py``)."""
+    of the incremental latest map (``grid/builder.py``).  ``backend``:
+    ``"matmul"`` or ``"scatter"`` (module docstring); ``crop`` applies to
+    ``"matmul"`` only."""
+    _check_backend(backend)
     h, w = shape
     return _delta_impl(
         h, w, sensor_xy, hits_xy, hit_mask, f32(resolution, sensor_xy.device),
         offset_xy, logodds_hit, logodds_miss, num_samples,
-        crop if crop is not None else max(h, w),
+        crop if crop is not None else max(h, w), backend,
     )
 
 
@@ -118,9 +159,12 @@ def _apply_delta(lo, obs, delta):
 
 def integrate_scans(logodds, observed, sensor_xy, hits_xy, hit_mask,
                     resolution, offset_xy, logodds_hit, logodds_miss,
-                    num_samples=DEFAULT_SAMPLES_PER_BEAM, crop=None):
+                    num_samples=DEFAULT_SAMPLES_PER_BEAM, crop=None,
+                    backend="matmul"):
     """Integrate S scans in sequence.  Returns updated (logodds, observed)
-    and the i32 device count of valid HIT endpoints outside the raster."""
+    and the i32 device count of valid HIT endpoints outside the raster.
+    ``backend`` and ``crop`` as :func:`scan_delta`."""
+    _check_backend(backend)
     if not (sensor_xy.shape[0] == hits_xy.shape[0] == hit_mask.shape[0]
             and hits_xy.shape[1] == hit_mask.shape[1]):
         raise ValueError(
@@ -133,7 +177,7 @@ def integrate_scans(logodds, observed, sensor_xy, hits_xy, hit_mask,
     for i in range(sensor_xy.shape[0]):
         delta = _delta_impl(
             h, w, sensor_xy[i], hits_xy[i], hit_mask[i], res, offset_xy,
-            logodds_hit, logodds_miss, num_samples, crop,
+            logodds_hit, logodds_miss, num_samples, crop, backend,
         )
         logodds, observed = _apply_delta(logodds, observed, delta)
     hit_r, hit_c = _cell_of(hits_xy, res, offset_xy)

@@ -68,10 +68,12 @@ def frontend_config(fields: dict) -> FrontendConfig:
 
 
 def map_raster(prob, observed, offset_xy, resolution, device) -> MapRaster:
-    """A matching raster from NumPy: ``prob`` as u8 levels, ``observed``
-    as bools, and the raster offset."""
+    """A matching raster from NumPy: ``prob`` as f32 probabilities if it
+    is a float array, else as u8 levels; ``observed`` as bools, and the
+    raster offset."""
+    floating = np.issubdtype(np.asarray(prob).dtype, np.floating)
     return MapRaster(
-        to_device(prob, device, np.uint8),
+        to_device(prob, device, np.float32 if floating else np.uint8),
         to_device(observed, device, bool),
         float(resolution),
         np.asarray(offset_xy, np.float64),

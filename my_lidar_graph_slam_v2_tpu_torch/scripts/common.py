@@ -4,8 +4,9 @@ device memory, and the least time the card could take for a sweep.
 
 The peaks behind every bound are those of an H100 SXM at its 700 W limit:
 HBM bytes/s from the data sheet, int32 adds/s as 132 SMs x 64 INT32 lanes
-x the 1.98 GHz boost clock, and f32 operations/s outside the tensor cores
-from the data sheet.
+x the 1.98 GHz boost clock, f64 adds/s likewise from the 64 FP64 lanes of
+an SM, and f32 operations/s outside the tensor cores from the data
+sheet.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ REPO = Path(__file__).resolve().parents[2]
 
 HBM_BYTES_PER_S = 3.35e12
 INT32_ADDS_PER_S = 132 * 64 * 1.98e9
+F64_ADDS_PER_S = 132 * 64 * 1.98e9
 F32_OPS_PER_S = 67e12
 
 
@@ -31,19 +33,24 @@ def bound(nbytes, ops, ops_per_s):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sweep_bound(s, ok):
+def sweep_bound(s, ok, f32=False):
     """Bound of one sweep of shape ``s`` (``N``, ``T``, ``B``, the window
     ``in_r`` x ``in_c``, tile origins ``origins`` ``[N, K, 2]`` and
     ``n_off`` offsets per candidate): each input byte read once (window,
     beam cells and mask, tile origins), each output byte written once, and
-    one int32 add per (valid beam, offset) of this input's mask ``ok``.
-    One add serves both channels: a cell's two u8 values fit in one 32-bit
-    word (p | o << 16) and a warp's sums cannot carry between the halves,
-    as the kernel adds them."""
+    the adds per (valid beam, offset) of this input's mask ``ok``.  A u8
+    window (2 B a cell) takes one int32 add: a cell's two u8 values fit in
+    one 32-bit word (p | o << 16) and a warp's sums cannot carry between
+    the halves, as the kernel adds them.  An f32 window (``f32``, 8 B a
+    cell) takes two f64 adds, one per channel."""
     N, T, B, K = s["N"], s["T"], s["B"], s["origins"].shape[1]
-    nbytes = (N * s["in_r"] * s["in_c"] * 2 + N * T * B * 9 + N * K * 8
+    cell = 8 if f32 else 2
+    nbytes = (N * s["in_r"] * s["in_c"] * cell + N * T * B * 9 + N * K * 8
               + N * T * 2 * s["n_off"] * 4)
-    return bound(nbytes, int(ok.sum()) * s["n_off"], INT32_ADDS_PER_S)
+    adds = int(ok.sum()) * s["n_off"]
+    if f32:
+        return bound(nbytes, 2 * adds, F64_ADDS_PER_S)
+    return bound(nbytes, adds, INT32_ADDS_PER_S)
 
 
 def sweep_call_bound(win, hr, ok, origins, *, tile_h, tile_w):
@@ -51,7 +58,7 @@ def sweep_call_bound(win, hr, ok, origins, *, tile_h, tile_w):
     N, T, B = hr.shape
     s = dict(N=N, T=T, B=B, in_r=win.shape[1], in_c=win.shape[2],
              origins=origins, n_off=origins.shape[1] * tile_h * tile_w)
-    return sweep_bound(s, ok)
+    return sweep_bound(s, ok, f32=win.dtype == torch.float32)
 
 
 def nvidia_smi() -> str:

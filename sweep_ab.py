@@ -17,10 +17,16 @@ CUDA graph, median of 20 replays) and the bound from
 ``chip_smoke.sweep_bound``.  The shapes and inputs come from this
 checkout's ``chip_smoke.py`` (seeded), so every tree gets the same inputs.
 
+``python3 sweep_ab.py --f32 TREE`` does the same for the f32 form
+(``csrc/csm_sweep_f32.cu``, ``csm_cuda.csm_sweep_f32``) at
+``chip_smoke.F32_SHAPES``, on the window of ``chip_smoke.f32_raw_window``
+rounded as precision "split" rounds it (the tree's ``csm.round_window``).
+
 Imports nothing of JAX.  Exits non-zero without CUDA.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import sys
@@ -31,18 +37,25 @@ import torch
 
 
 def main() -> int:
-    if len(sys.argv) != 2:
+    argv = sys.argv[1:]
+    f32 = argv[:1] == ["--f32"]
+    if f32:
+        argv = argv[1:]
+    if len(argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("sweep_ab: CUDA is not available", file=sys.stderr)
         return 1
     here = Path(__file__).resolve().parent
-    tree = Path(sys.argv[1]).resolve()
-    sys.path.insert(0, str(here))
-    import chip_smoke
-
+    tree = Path(argv[0]).resolve()
+    # The tree's package first on the path, so this checkout's
+    # chip_smoke.py (loaded by its path) runs on it too.
     sys.path.insert(0, str(tree))
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  here / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
     from my_lidar_graph_slam_v2_tpu_torch.ops import csm, csm_cuda
 
     if not Path(csm.__file__).resolve().is_relative_to(tree):
@@ -51,21 +64,27 @@ def main() -> int:
     label = os.path.relpath(tree, here)
     print(f"device: {chip_smoke._nvidia_smi()}; tree {label}", flush=True)
     rng = np.random.default_rng(0)
+    kernel = csm_cuda.csm_sweep_f32 if f32 else csm_cuda.csm_sweep
     for s in chip_smoke.kernel_shapes():
+        if f32 and s["shape"] not in chip_smoke.F32_SHAPES:
+            continue
         win, hr, hc, ok = chip_smoke.sweep_inputs(rng, s)
+        win = (csm.round_window(torch.as_tensor(
+            chip_smoke.f32_raw_window(rng, win)), "split").numpy() if f32
+            else win.transpose(0, 2, 3, 1).copy())
         th, tw, stride = s["tile"]
         kw = dict(tile_h=th, tile_w=tw, stride=stride)
         args = tuple(torch.as_tensor(a, device=device) for a in (
-            win.transpose(0, 2, 3, 1).copy(), hr, hc, ok, s["origins"]))
+            win, hr, hc, ok, s["origins"]))
         ref = csm.sweep_tiles_plain(*args, **kw)
-        got = csm_cuda.csm_sweep(*args, **kw)
+        got = kernel(*args, **kw)
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
             raise AssertionError(f"{label}: kernel != plain at {s['shape']}")
-        ms = chip_smoke._graph_ms(lambda: csm_cuda.csm_sweep(*args, **kw))
-        bound_ms, bound_by = chip_smoke.sweep_bound(s, ok)
+        ms = chip_smoke._graph_ms(lambda: kernel(*args, **kw))
+        bound_ms, bound_by = chip_smoke.sweep_bound(s, ok, f32=f32)
         print("sweep_ab " + json.dumps(dict(
-            tree=label, shape=s["shape"], ms=ms, bound_ms=bound_ms,
+            tree=label, f32=f32, shape=s["shape"], ms=ms, bound_ms=bound_ms,
             bound_by=bound_by, pct_of_bound=100 * bound_ms / ms)), flush=True)
     return 0
 

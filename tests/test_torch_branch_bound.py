@@ -109,15 +109,40 @@ def test_sweep_from_hits_bit_for_bit(scene, shape):
 
 
 def test_sweep_from_hits_raises_on_highest(scene):
-    _, pgm = scene[:2]
-    img = torch.zeros((2, 8, 8))
-    zero = torch.tensor(0, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        csm.sweep_from_hits(img, zero, zero, pgm.prob, pgm.observed, 0, 0,
-                            nx=2, ny=2, stride=1, precision="highest")
-    with pytest.raises(NotImplementedError):  # f32 maps
-        csm.sweep_from_hits(img, zero, zero, pgm.prob.float(), pgm.observed,
-                            0, 0, nx=2, ny=2, stride=1, precision="split")
+    """(Named for the refusal it checked while the port took u8 maps only.)
+    ``sweep_from_hits`` on the u8 map at "highest" and on its f32 form at
+    "split" and "fast", against the JAX sweep on the same hit images and
+    map: known counts equal, scores within 2e-3 (JAX rounds each f32 add,
+    the port sums the rounded window exactly and rounds once)."""
+    jgm, pgm, scan, pscan, true_pose = scene
+    T, crop = 16, 160
+    pose = jnp.asarray(true_pose + np.array([0.05, 0.04, -0.01]), jnp.float32)
+    step, t0, tmask = jcsm.theta_search_params(scan.ranges, scan.mask, 0.05,
+                                               0.2, T)
+    off = jnp.asarray(jgm.offset_xy, jnp.float32)
+    hr, hc, valid, r0, c0 = jcsm.beam_cells(
+        scan.ranges, scan.angles, scan.mask, pose, t0, step, tmask, 0.05, off,
+        n_theta=T, crop_rows=crop, crop_cols=crop)
+    img = jcsm.build_hit_images(hr, hc, valid, tmask, crop_rows=crop,
+                                crop_cols=crop)
+    probf = jquant.dequant_prob(jgm.prob)
+    for jp, pp, precision in ((jgm.prob, pgm.prob, "highest"),
+                              (probf, torch.as_tensor(np.asarray(probf)),
+                               "split"),
+                              (probf, torch.as_tensor(np.asarray(probf)),
+                               "fast")):
+        ref_s, ref_k = jcsm.sweep_from_hits(
+            img, r0, c0, jp, jgm.observed, jnp.int32(-6), jnp.int32(-5),
+            nx=12, ny=11, stride=1, precision=precision)
+        got_s, got_k = csm.sweep_from_hits(
+            torch.as_tensor(np.asarray(img.astype(jnp.float32))),
+            torch.tensor(int(r0), dtype=torch.int32),
+            torch.tensor(int(c0), dtype=torch.int32), pp, pgm.observed,
+            -6, -5, nx=12, ny=11, stride=1, precision=precision)
+        np.testing.assert_array_equal(got_k.numpy(), np.asarray(ref_k))
+        np.testing.assert_allclose(got_s.numpy(), np.asarray(ref_s), rtol=0,
+                                   atol=2e-3)
+        assert float(got_s.max()) > 1.0
 
 
 # (config fields, score threshold, known-rate threshold): the test's

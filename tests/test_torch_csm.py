@@ -258,8 +258,8 @@ def _bad_args(case):
         args["win"] = args["win"][..., :1].contiguous()
     elif case == "win channels first":
         args["win"] = args["win"].permute(0, 3, 1, 2).contiguous()
-    elif case == "win f32":
-        args["win"] = args["win"].float()
+    elif case == "win f64":
+        args["win"] = args["win"].double()
     elif case == "hr int64":
         args["hr"] = args["hr"].long()
     elif case == "ok uint8":
@@ -285,7 +285,7 @@ def _bad_args(case):
     return args
 
 
-BAD_CASES = ["win one channel", "win f32", "hr int64", "ok uint8",
+BAD_CASES = ["win one channel", "win f64", "hr int64", "ok uint8",
              "hr batch differs", "hc shape differs", "off int64",
              "off not pairs", "win channels first", "origins batch differs",
              "no tiles", "tile height 0", "stride 0", "tile width float"]

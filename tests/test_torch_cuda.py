@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from my_lidar_graph_slam_v2_tpu_torch.ops import csm, csm_cuda, hit_images_cuda
-from torch_sweep_cases import TILE_CASES, tile_case
+from torch_sweep_cases import TILE_CASES, f32_window, tile_case
 
 pytestmark = pytest.mark.cuda
 
@@ -106,6 +106,111 @@ def test_kernel_raises_on_what_it_does_not_take(cuda_device):
         with pytest.raises(ValueError):
             csm_cuda.csm_sweep(win, hr, hc, ok, bad_org.contiguous(), **kw)
     assert csm_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("precision", ["highest", "split"])
+@pytest.mark.parametrize("name", TILE_CASES)
+def test_f32_tile_kernel_equals_plain(cuda_device, name, precision):
+    """The f32 kernel at every tile case, on windows rounded as each
+    precision rounds them: its exact f64 sums equal the plain version's
+    bit for bit, and one launch is counted apart from the u8 kernel's."""
+    win, hr, hc, ok, origins, (th, tw, stride), _ = tile_case(name)
+    win = f32_window(win, TILE_CASES.index(name), precision)
+    args = [torch.as_tensor(a) for a in (win, hr, hc, ok, origins)]
+    kw = dict(tile_h=th, tile_w=tw, stride=stride)
+    ref = csm.sweep_tiles_plain(*args, **kw)
+    before, before_u8 = csm_cuda.F32_LAUNCHES, csm_cuda.LAUNCHES
+    out = csm.sweep(*[a.to(cuda_device) for a in args], **kw)
+    torch.cuda.synchronize(cuda_device)
+    assert csm_cuda.F32_LAUNCHES == before + 1
+    assert csm_cuda.LAUNCHES == before_u8
+    assert torch.equal(out.cpu(), ref)
+
+
+# (N, T, B, in_r, in_c, ny, nx, stride): the frontend's coarse and fine
+# sweeps, the loop batch's, and a whole 1024 x 1024 map as the window
+# with beams off it on every side (the gather backend).
+@pytest.mark.parametrize("shape", [
+    (1, 208, 512, 325, 325, 2, 2, 5),
+    (1, 32, 512, 329, 329, 10, 10, 1),
+    (8, 32, 512, 502, 502, 5, 5, 1),
+    (2, 40, 512, 1024, 1024, 11, 11, 5),
+    (2, 40, 512, 1024, 1024, 55, 55, 1),
+])
+def test_f32_kernel_equals_plain(cuda_device, shape):
+    N, T, B, in_r, in_c, ny, nx, stride = shape
+    rng = np.random.default_rng(sum(shape))
+    win, hr, hc, ok = _inputs(rng, N, T, B, in_r, in_r, in_c)
+    hr -= 20
+    hc -= 20
+    win = torch.as_tensor(f32_window(win.numpy(), sum(shape), "split"))
+    origins = torch.as_tensor(
+        rng.integers(-25, 5, (N, 1, 2)).astype(np.int32))
+    kw = dict(tile_h=ny, tile_w=nx, stride=stride)
+    ref = csm.sweep_tiles_plain(win, hr, hc, ok, origins, **kw)
+    out = csm.sweep(*[a.to(cuda_device) for a in (win, hr, hc, ok, origins)],
+                    **kw)
+    torch.cuda.synchronize(cuda_device)
+    assert torch.equal(out.cpu(), ref)
+
+
+def test_f32_kernel_raises_on_what_it_does_not_take(cuda_device):
+    rng = np.random.default_rng(2)
+    win, hr, hc, ok = [a.to(cuda_device)
+                       for a in _inputs(rng, 1, 4, 64, 32, 36, 36)]
+    win = win.float()
+    org = torch.zeros((1, 1, 2), dtype=torch.int32, device=cuda_device)
+    kw = dict(tile_h=5, tile_w=5, stride=1)
+    before = csm_cuda.F32_LAUNCHES
+    for bad in (dict(win=win.double()), dict(win=win.to(torch.uint8)),
+                dict(win=win.half()), dict(win=win[..., :1].contiguous()),
+                dict(win=win.cpu()), dict(hr=hr.long()),
+                dict(ok=ok.to(torch.uint8)), dict(origins=org.long()),
+                dict(hr=torch.cat([hr, hr])),
+                dict(win=win.reshape(-1)[2:2 + 2 * 35 * 36].view(1, 35, 36, 2)),
+                dict(win=win.transpose(1, 2)), dict(tile_h=0),
+                dict(stride=0), dict(tile_w=5.0)):
+        a = dict(win=win, hr=hr, hc=hc, ok=ok, origins=org, **kw)
+        a.update(bad)
+        with pytest.raises(ValueError):
+            csm_cuda.csm_sweep_f32(**a)
+    with pytest.raises(ValueError):  # the u8 kernel refuses f32 windows
+        csm_cuda.csm_sweep(win, hr, hc, ok, org, **kw)
+    assert csm_cuda.F32_LAUNCHES == before
+
+
+@pytest.mark.parametrize("backend", ["matmul", "scatter"])
+def test_rasterize_adds_are_bitwise_equal_on_cuda_and_cpu(cuda_device,
+                                                          backend):
+    """``index_add_`` of one f32 value per hit (and per miss sample on the
+    scatter backend) lands in another order on the card (atomics), and
+    every order gives the same sum: 512 beams ending in 8 cells, deltas
+    and an integrated map equal on both devices bit for bit."""
+    from my_lidar_graph_slam_v2_tpu_torch.ops import rasterize
+
+    rng = np.random.default_rng(12)
+    B, shape, res = 512, (256, 256), 0.05
+    targets = rng.uniform(-5, 5, (8, 2))
+    hits = (targets[rng.integers(0, 8, (2, B))]
+            + rng.uniform(0, 0.01, (2, B, 2))).astype(np.float32)
+    sensors = np.float32([[0.11, -0.07], [0.4, 0.3]])
+    mask = rng.uniform(size=(2, B)) < 0.95
+    off = np.float32([-6.4, -6.4])
+    lh, lm = float(np.log(0.62 / 0.38)), float(np.log(0.46 / 0.54))
+    kw = dict(num_samples=256, crop=256, backend=backend)
+
+    def run(dev):
+        t = [torch.as_tensor(a, device=dev) for a in (sensors, hits, mask, off)]
+        delta = rasterize.scan_delta(shape, t[0][0], t[1][0], t[2][0], res,
+                                     t[3], lh, lm, **kw)
+        lo, obs, n = rasterize.integrate_scans(
+            torch.zeros(shape, device=dev),
+            torch.zeros(shape, dtype=torch.bool, device=dev), *t[:3], res,
+            t[3], lh, lm, **kw)
+        return [a.cpu() for a in (delta, lo, obs, n)]
+
+    for g, c in zip(run(cuda_device), run("cpu")):
+        assert torch.equal(g, c)
 
 
 # (T, B, crop_rows, crop_cols, pile): branch-and-bound's shape, the

@@ -369,16 +369,24 @@ def test_grid_search_scores_equal_the_oracle(step):
 
 
 def test_grid_search_refuses_f32_maps_and_highest(scene):
-    m = pgs.ScanMatcherGridSearch(pgs.GridSearchConfig(**GS_INT), "cpu")
-    f32_map = reference.map_raster(scene["prob"], scene["obs"],
-                                   scene["offset_xy"], RES, "cpu")
-    f32_map.prob = f32_map.prob.to(torch.float32) / 255.0
-    with pytest.raises(NotImplementedError):
-        m.optimize_pose(PScanMatchingQuery(f32_map, scene["pscan"], INIT))
-    hi = pgs.ScanMatcherGridSearch(
-        pgs.GridSearchConfig(**GS_INT, precision="highest"), "cpu")
-    with pytest.raises(NotImplementedError):
-        hi.optimize_pose(PScanMatchingQuery(scene["pmap"], scene["pscan"], INIT))
+    """(Named for the refusal it checked while the port took u8 maps only.)
+    The matcher on the scene's f32 probabilities (the u8 map dequantized)
+    at "split", and on the u8 map at "highest", against the JAX matcher on
+    the same map: integer and arbitrary steps, the tolerances of the u8
+    matches plus 2e-3 / n of score (JAX rounds each f32 add, the port sums
+    exactly and rounds once)."""
+    n = scene["scan"].num_valid
+    probf = np.asarray(jquant.dequant_prob(scene["prob"]))
+    f32_scene = dict(scene, prob=probf, pmap=reference.map_raster(
+        probf, scene["obs"], scene["offset_xy"], RES, "cpu"))
+    assert f32_scene["pmap"].prob.dtype == torch.float32
+    near = TRUE + np.array([0.1, -0.08, 0.04])
+    for sc, kw, init in ((f32_scene, GS_INT, INIT), (f32_scene, GS_ARB, near),
+                         (scene, dict(GS_INT, precision="highest"), INIT)):
+        jcfg, js, ps = _run_grid_search(sc, kw, None, init)
+        assert ps.pose_found
+        _assert_grid_search_match(sc, jcfg, js, ps, 2e-3 / n)
+        assert np.linalg.norm(ps.estimated_pose[:2] - TRUE[:2]) < 0.08
 
 
 def test_grid_search_config_properties_equal_reference():

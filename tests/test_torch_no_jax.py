@@ -4,6 +4,8 @@ frontend through the factory with the branch-and-bound loop backend, one
 branch-and-bound loop match, one batched correlative detection (the
 default backend's), one detection and one solve of the multi-device
 backend, one owner-routed detection in a one-rank gloo group, one grid-search and one hill-climbing match, a
+correlative, grid-search and branch-and-bound match on an f32 map (the
+correlative one with either sweep backend), a scatter-rasterized scan, a
 counting-grid update and one pose-graph solve, imports the launcher and
 its modules, builds a system from settings, reads a Carmen log with the
 native parser, imports the measurement scripts and runs the head-to-head
@@ -146,6 +148,28 @@ arrays = scan_to_arrays(node.scan_data, 128, "cpu")
 for m in (gs, hc):
     m.optimize_pose(ScanMatchingQuery(raster, arrays, np.zeros(3)))
 assert gs.host_fetches == 1 and hc.matches == 1
+
+import torch
+from my_lidar_graph_slam_v2_tpu_torch.matching.correlative import (
+    CorrelativeConfig, ScanMatcherCorrelative)
+from my_lidar_graph_slam_v2_tpu_torch.matching.types import MapRaster
+from my_lidar_graph_slam_v2_tpu_torch.ops import csm, rasterize
+
+f32_raster = MapRaster(raster.prob.float() / 255.0, raster.observed,
+                       raster.resolution, raster.offset_xy)
+f32_query = ScanMatchingQuery(f32_raster, arrays, np.zeros(3))
+for backend in ("matmul", "gather"):
+    ScanMatcherCorrelative(CorrelativeConfig(
+        n_theta_max=16, crop_rows=96, crop_cols=96, precision="highest",
+        sweep_backend=backend), "cpu").optimize_pose(f32_query)
+gs.optimize_pose(f32_query)
+bb.optimize_pose(f32_query)
+assert gs.host_fetches == 2 and bb.matches == 2
+delta = rasterize.scan_delta((64, 64), arrays.ranges.new_zeros(2),
+                             torch.ones(3, 2), torch.ones(3, dtype=torch.bool),
+                             0.05, torch.full((2,), -1.6), 0.5, -0.2,
+                             num_samples=32, backend="scatter")
+assert float(delta.abs().sum()) > 0
 counted = GridCounted(8, 8, "cpu")
 counted.update([1, 2, 9], [3, 4, 0], [True, False, True])
 assert int(counted.counts.sum()) == 2
@@ -164,7 +188,8 @@ with tempfile.TemporaryDirectory() as tmp:
 
 from pathlib import Path
 from my_lidar_graph_slam_v2_tpu_torch.scripts import (
-    bench_csm, bench_e2e, common, eval_ate, head_to_head, metric_diff)
+    bench_csm, bench_e2e, common, eval_ate, eval_bb_pyramid, eval_scaling,
+    eval_scaling_pipeline, head_to_head, metric_diff)
 
 h2h = Path("h2h")
 x = head_to_head.optimizer_cross_check(h2h / "ref_synth7.posegraph.json",
@@ -174,6 +199,9 @@ assert len(bench_e2e.build_sequence(4).scans) > 10
 assert len(eval_ate.configs()) == 4 and metric_diff.SECTIONS
 assert bench_csm.pinned_cpu_baseline()["cpu_rate"] > 0
 assert common.card(common.script_device("cpu", "t"))["platform"] == "cpu"
+assert eval_bb_pyramid.build_inputs(64, 16)["maps"]["peaked"][0].max() == 240
+assert eval_scaling.schur_graph()[2][0].size == 1024 + 128
+assert callable(eval_scaling_pipeline.run_config)
 assert not [m for m in sys.modules if _blocked(m)]
 print("ok", slam.process_count)
 """

@@ -52,3 +52,26 @@ def tile_case(name):
                     255 * (rng.uniform(size=(N, in_r, in_c)) < 0.7)],
                    -1).astype(np.uint8)
     return win, hr, hc, ok, origins.astype(np.int32), tile, crop
+
+
+def f32_window(win_u8, seed, precision="highest"):
+    """An f32 window ``[N, in_r, in_c, 2]`` of the shape of the u8 window
+    ``win_u8``: probabilities in [1e-3, 1 - 1e-3] (the clamp of
+    ``grid/values.py``) where observed, 0 elsewhere, observed as 0/1; the
+    probabilities rounded as ``precision`` rounds them (``ops/csm.py:
+    round_window``, spelled out here in NumPy through bf16 bits)."""
+    rng = np.random.default_rng(seed)
+    obs = win_u8[..., 1] > 0
+    p = rng.uniform(1e-3, 1 - 1e-3, obs.shape).astype(np.float32)
+    if precision != "highest":
+        hi = _bf16(p)
+        p = hi if precision == "fast" else (hi + _bf16(p - hi)).astype(
+            np.float32)
+    return np.stack([np.where(obs, p, 0), obs], -1).astype(np.float32)
+
+
+def _bf16(x):
+    """f32 values rounded to bf16 (to nearest, ties to even), as f32."""
+    b = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    b = (b + 0x7FFF + ((b >> 16) & 1)) >> 16 << 16
+    return b.astype(np.uint32).view(np.float32)
