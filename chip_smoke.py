@@ -9,7 +9,9 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    name and power limit as ``nvidia-smi`` reports them.
 2. Build: compiles ``csrc/csm_sweep.cu``, ``csrc/csm_sweep_f32.cu`` and
    ``csrc/hit_images.cu`` with nvcc for sm_90a from the checkout's
-   sources, all at once, and prints the build times and ptxas reports.
+   sources, all at once, and prints the build times and ptxas reports,
+   and each kernel's count of f32-to-f64 converts (``F2F.F64.F32`` in
+   ``cuobjdump -sass``): the f32 sweep kernels must have none.
 3. Kernels against plain: the CSM sweep kernel must be ``torch.equal`` to
    its plain PyTorch version at every sweep the system runs
    (:func:`kernel_shapes`: the frontend's coarse, fine and dense sweeps,
@@ -25,9 +27,11 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    for the hit images).  The f32 form of the sweep likewise at the
    frontend's, the correlative loop matchers' (serial and batched), the
    grid search's and the degenerate shapes, on windows from a seeded f32
-   map rounded as each precision rounds them, the plain result also
-   unchanged when the beams are permuted (``F.conv2d`` f32 its library
-   call).
+   map rounded as each precision rounds them, the kernel's and the plain
+   result also unchanged when the beams are permuted (``F.conv2d`` f32 its
+   library call; the time is the pack's and the sweep's), its pack kernel
+   ``torch.equal`` to the plain pack at each shape, and the sweep at
+   2,048 beams all reading 1.0 (the fixed point's edge; no time).
 4. The frontend slice: ``create_default_slam(device="cuda")`` at the
    factory defaults drives the synthetic office sequence for >= 40
    keyframes; the same sequence runs through the port on the CPU (plain
@@ -114,7 +118,8 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
     with the gather backend (the whole map as the window), the grid
     search at phase 9's steps and branch-and-bound at phase 5's config:
     ms per match, f32 and u8 sweep launches per match (2 f32 per
-    correlative match, 1 per grid-search match, none u8) and found flags;
+    correlative match, 1 per grid-search match, none u8; one pack launch
+    per f32 sweep) and found flags;
     the same found flags as the u8 match of each query and poses within
     0.05 m / 0.02 rad of it, and on the CPU for 4 queries bitwise-equal
     poses.
@@ -417,9 +422,12 @@ def check_f32_kernel(device):
     """Phase 3, f32 windows: the f32 sweep kernel vs its plain version
     (``torch.equal``) at :data:`F32_SHAPES`, on windows from a seeded f32
     map (probabilities in [1e-3, 1 - 1e-3] where observed) rounded as each
-    precision rounds them; the plain result unchanged when the beams are
-    permuted; device ms of the "split" window from CUDA-graph replays,
-    beside its bound, the plain version's ms and ``F.conv2d`` f32's."""
+    precision rounds them; the kernel's and the plain result unchanged
+    when the beams are permuted; the pack kernel equal to the plain pack;
+    device ms of the "split" window from CUDA-graph replays (the whole
+    wrapper: pack and sweep; the pack alone as ``pack``), beside its
+    bound, the plain version's ms and ``F.conv2d`` f32's; then the sweep
+    at 2,048 beams all reading 1.0 (:func:`check_f32_all_ones`)."""
     from my_lidar_graph_slam_v2_tpu_torch.ops import csm, csm_cuda
 
     rng = np.random.default_rng(3)
@@ -444,15 +452,25 @@ def check_f32_kernel(device):
                 raise AssertionError(
                     f"f32 kernel != plain at shape {s['shape']}, {precision}")
         perm = torch.randperm(s["B"], generator=gen).to(device)
-        permuted = csm.sweep_tiles_plain(win, hr[..., perm], hc[..., perm],
-                                         ok[..., perm], origins, **kw)
-        if not torch.equal(permuted, ref):
+        beams = (hr[..., perm], hc[..., perm], ok[..., perm])
+        permuted = csm.sweep_tiles_plain(win, *beams, origins, **kw)
+        permuted_kernel = csm_cuda.csm_sweep_f32(win, *beams, origins, **kw)
+        if not (torch.equal(permuted, ref) and torch.equal(permuted_kernel,
+                                                           ref)):
             raise AssertionError(
-                f"f32 plain sweep depends on the beam order at {s['shape']}")
+                f"f32 sweep depends on the beam order at {s['shape']}")
+        packed = csm_cuda.csm_pack_f32(win)
+        packed_ref = csm.pack_f32_window_plain(win)
+        if not torch.equal(packed, packed_ref):
+            raise AssertionError(f"f32 pack != plain at shape {s['shape']}")
         lib, lib_out = sweep_library_call(win.permute(0, 3, 1, 2), hr, hc, ok,
                                           s)
         bound_ms, bound_by = sweep_bound(s, ok, f32=True)
         ms = _graph_ms(lambda: csm_cuda.csm_sweep_f32(*args, **kw))
+        pack_ms = _graph_ms(lambda: csm_cuda.csm_pack_f32(win))
+        # The pack reads 8 B and writes 8 B a cell, one f32 multiply each.
+        pack_bound_ms, pack_bound_by = _bound(
+            16 * packed.numel(), packed.numel(), F32_OPS_PER_S)
         row = dict(
             shape=s["shape"], N=s["N"], T=s["T"], B=s["B"], crop=s["crop"],
             tile=list(s["tile"]), tiles=int(s["origins"].shape[1]),
@@ -464,10 +482,45 @@ def check_f32_kernel(device):
             library_ms=None if lib is None else _events_ms(lib),
             library_max_abs_err=None if lib is None else float(
                 (lib_out - got).abs().max()),
+            pack=dict(
+                ms=pack_ms, max_abs_err=float(
+                    (packed - packed_ref).abs().max()),
+                plain_ms=_events_ms(lambda: csm.pack_f32_window_plain(win)),
+                bound_ms=pack_bound_ms, bound_by=pack_bound_by,
+                pct_of_bound=100 * pack_bound_ms / pack_ms, library_ms=None),
         )
         print(f"f32_kernel {json.dumps(row)}", flush=True)
         out.append(row)
+    check_f32_all_ones(device)
     return out
+
+
+def check_f32_all_ones(device):
+    """Phase 3, the f32 fixed point's edge: 2,048 beams (the most the
+    kernel takes), every one valid and every offset on a window of 1.0
+    observed, so each output sums m = 2048 * 2^41 = 2^52 and each warp's
+    observed count is 128; the kernel equal to the plain version and both
+    2048.0, for a stride-1 and a strided tile.  No time."""
+    from my_lidar_graph_slam_v2_tpu_torch.ops import csm, csm_cuda
+
+    rng = np.random.default_rng(2048)
+    N, T, B = 2, 3, 2048
+    win = torch.ones((N, 64, 64, 2), dtype=torch.float32, device=device)
+    hr, hc = (torch.as_tensor(rng.integers(0, 10, (N, T, B)).astype(np.int32),
+                              device=device) for _ in range(2))
+    ok = torch.ones((N, T, B), dtype=torch.bool, device=device)
+    origins = torch.zeros((N, 1, 2), dtype=torch.int32, device=device)
+    for th, tw, stride in ((10, 10, 1), (11, 11, 5)):
+        kw = dict(tile_h=th, tile_w=tw, stride=stride)
+        got = csm_cuda.csm_sweep_f32(win, hr, hc, ok, origins, **kw)
+        ref = csm.sweep_tiles_plain(win, hr, hc, ok, origins, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, ref)
+                and torch.equal(ref, torch.full_like(ref, 2048.0))):
+            raise AssertionError(f"f32 kernel at 2,048 beams of 1.0, tile "
+                                 f"{(th, tw, stride)}: {got.unique()}")
+    print(f"f32_all_ones {json.dumps(dict(N=N, T=T, B=B, equal=True))}",
+          flush=True)
 
 
 def run_slice(device, seq, make_slam=None, **factory_kw):
@@ -1866,9 +1919,9 @@ def check_f32_maps(device, phase7):
     search at phase 9's steps and branch-and-bound at phase 5's config,
     each at the detector's
     thresholds.  Per match: host ms (its fetch synchronizes), f32 and u8
-    sweep launches and hit-image launches; :data:`F32_CPU_QUERIES`
-    queries (those the u8 match found a pose for first) also on the
-    CPU."""
+    sweep launches, f32 pack launches and hit-image launches;
+    :data:`F32_CPU_QUERIES` queries (those the u8 match found a pose for
+    first) also on the CPU."""
     from my_lidar_graph_slam_v2_tpu_torch.core import pose as P
     from my_lidar_graph_slam_v2_tpu_torch.loop.detector import scan_to_arrays
     from my_lidar_graph_slam_v2_tpu_torch.matching.types import (
@@ -1943,7 +1996,8 @@ def check_f32_maps(device, phase7):
               for k, m in u8_ref.items()}
         for name, m in gpu_m.items():
             n0 = (csm_cuda.F32_LAUNCHES, csm_cuda.LAUNCHES,
-                  hit_images_cuda.LAUNCHES, reruns(m))
+                  hit_images_cuda.LAUNCHES, reruns(m),
+                  csm_cuda.F32_PACK_LAUNCHES)
             t = time.perf_counter()
             r = m.optimize_pose(ScanMatchingQuery(f32_raster, arrays,
                                                   q["pose"]), *thr)
@@ -1954,6 +2008,7 @@ def check_f32_maps(device, phase7):
                        - np.asarray(ref.estimated_pose))
             rows[name].append(dict(
                 ms=ms, f32=csm_cuda.F32_LAUNCHES - n0[0],
+                pack=csm_cuda.F32_PACK_LAUNCHES - n0[4],
                 u8=csm_cuda.LAUNCHES - n0[1],
                 hits=hit_images_cuda.LAUNCHES - n0[2], reruns=reruns(m) - n0[3],
                 found=r.pose_found, found_u8=ref.pose_found,
@@ -2004,6 +2059,8 @@ def check_f32_maps(device, phase7):
             max_dtheta_vs_u8_rad=max(r["dtheta"] for r in rs))
     stats["f32_sweep_launches"] = sum(r["f32"] for rs in rows.values()
                                       for r in rs)
+    stats["f32_pack_launches"] = sum(r["pack"] for rs in rows.values()
+                                     for r in rs)
     print(f"f32_maps {json.dumps(stats)}", flush=True)
     if len(queries) < F32_CPU_QUERIES or cpu_equal < F32_CPU_QUERIES:
         raise AssertionError(f"{len(queries)} queries, {cpu_equal} on the CPU")
@@ -2011,6 +2068,7 @@ def check_f32_maps(device, phase7):
         want_f32 = {"grid_search": 1, "branch_bound": 0}.get(name, 2)
         for r in rs:
             if (r["f32"] != want_f32 * (1 + r["reruns"]) or r["u8"]
+                    or r["pack"] != r["f32"]
                     or r["hits"] != (name == "branch_bound")):
                 raise AssertionError(f"f32 maps, {name}: launches {r}")
             if r["found"] != r["found_u8"]:
@@ -2203,6 +2261,13 @@ def main() -> int:
               f"(cached={info['cached']})", flush=True)
         for line in info["log"].splitlines():
             print(f"  nvcc: {line}")
+    sass = {name: cuda_build.sass_counts(info["path"], "F2F.F64.F32")
+            for name, info in built.items()}
+    print(f"sass F2F.F64.F32 {json.dumps(sass)}", flush=True)
+    f32_sweeps = {k: v for k, v in sass["csm_sweep_f32"].items()
+                  if "pack_f32_kernel" not in k}
+    if not f32_sweeps or any(f32_sweeps.values()):
+        raise AssertionError(f"f32 sweep kernels' F2F.F64.F32: {f32_sweeps}")
 
     shapes = check_kernel(device)
     f32_shapes = check_f32_kernel(device)
@@ -2227,8 +2292,8 @@ def main() -> int:
     # fine), one f32-map correlative loop match's two sweeps and
     # branch-and-bound's hit images; every shape is in "shapes".
     # "launches" is the main path's: create_default_slam with the default
-    # (batched) backend, phase 7; for the f32 sweep its own path, the
-    # f32-map matches of phase 14.
+    # (batched) backend, phase 7; for the f32 sweep and its pack their own
+    # path, the f32-map matches of phase 14 (one pack per f32 sweep).
     frontend_rows = [r for r in shapes if r["shape"] in ("coarse", "fine")]
     bb_shape = [r for r in hit_shapes if r["shape"] == "branch_bound"]
     print(json.dumps({"kernels": [
@@ -2281,6 +2346,16 @@ def main() -> int:
             **_kernel_line([r for r in f32_shapes
                             if r["shape"] in ("loop_coarse", "loop_fine")]),
             shapes=f32_shapes,
+        ),
+        dict(
+            name="csm_sweep_f32_pack",
+            route="cuda",
+            source="my_lidar_graph_slam_v2_tpu_torch/csrc/csm_sweep_f32.cu",
+            replaces="my_lidar_graph_slam_v2_tpu/ops/csm_pallas.py:86",
+            launches=f32_maps["f32_pack_launches"],
+            max_abs_err=max(r["pack"]["max_abs_err"] for r in f32_shapes),
+            **_kernel_line([r["pack"] for r in f32_shapes
+                            if r["shape"] in ("loop_coarse", "loop_fine")]),
         ),
         dict(
             name="hit_images",

@@ -21,8 +21,9 @@ channels interleaved in one cell.  Two window types:
   operand (:func:`round_window`); S is summed in f64 and rounded to f32
   once.  Every f32 value >= 2^-18 is a multiple of 2^-41 and the sums of
   at most 2048 such values (each <= 1) stay below 2^52 of those units, so
-  the f64 sums are exact in any order: the kernel, its plain version and
-  either device give the same bits.  Every map the package builds
+  the f64 sums are exact in any order: the kernel (which sums the same
+  values as integers, :func:`pack_f32_window_plain`), its plain version
+  and either device give the same bits.  Every map the package builds
   qualifies (sigmoid of log-odds clamped to [1e-3, 1 - 1e-3], levels /
   255, their bf16 roundings); a map with non-zero cells below 2^-18 is
   outside that guarantee.  The JAX package rounds each f32 add instead,
@@ -298,6 +299,23 @@ def sweep_plain(win, hr, hc, ok, off, scale=quant.INV255):
     if acc == torch.float64:
         return S.to(torch.float32)
     return S.to(torch.float32) * float(scale)
+
+
+# The f32 sweep kernel's fixed point: a prob p is the integer p * 2^41,
+# and the observed flag rides above bit 56 of the same u64.
+F32_FIXED_BITS = 41
+F32_OBS_SHIFT = 56
+
+
+def pack_f32_window_plain(win):
+    """Plain PyTorch form of the f32 sweep kernel's pack: each cell of an
+    f32 window ``[N, in_r, in_c, 2]`` as one u64 ``m | obs << 56``, held
+    in an i64 ``[N, in_r, in_c]``: ``m = p * 2^41`` rounded to an integer
+    (to nearest, ties to even; exact for p = 0 or in [2^-18, 1], where the
+    sweep's sums are exact) and ``obs = observed != 0``."""
+    m = torch.round(win[..., 0].to(torch.float64) * 2.0 ** F32_FIXED_BITS)
+    return (m.to(torch.int64)
+            | (win[..., 1] != 0).to(torch.int64) << F32_OBS_SHIFT)
 
 
 def tile_offsets(origins, *, tile_h, tile_w, stride):

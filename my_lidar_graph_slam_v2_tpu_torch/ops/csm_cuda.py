@@ -8,9 +8,12 @@ Each kernel is compiled with ``nvcc`` for ``sm_90a`` on first use
 ``build/kernels/`` by a hash of the source) and bound with ``ctypes``.
 Nothing is built or loaded when this module is imported.
 
-``LAUNCHES`` counts the u8 kernel's launches and ``F32_LAUNCHES`` the f32
-kernel's; each is incremented only here, right after a launch that the
-runtime accepted.
+The f32 form is two kernels of one source: :func:`csm_pack_f32` packs
+the window into one u64 per cell (exact fixed point), and the sweep adds
+those integers.  ``LAUNCHES`` counts the u8 kernel's launches,
+``F32_LAUNCHES`` the f32 sweep's and ``F32_PACK_LAUNCHES`` the pack's
+(one each per :func:`csm_sweep_f32` call); each is incremented only here,
+right after a launch that the runtime accepted.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ NAME_F32 = "csm_sweep_f32"
 
 LAUNCHES = 0
 F32_LAUNCHES = 0
+F32_PACK_LAUNCHES = 0
 _libs = {}
 
 
@@ -40,6 +44,11 @@ def _load(name):
         max_beams = getattr(lib, f"{name}_max_beams")
         max_beams.argtypes = []
         max_beams.restype = ctypes.c_int
+        if name == NAME_F32:
+            pack = lib.csm_sweep_f32_pack_launch
+            pack.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                             ctypes.c_longlong, ctypes.c_void_p]
+            pack.restype = ctypes.c_int
         _libs[name] = lib
     return _libs[name]
 
@@ -85,8 +94,8 @@ def check_sweep_args(win, hr, hc, ok, origins, tile_h, tile_w, stride):
 
 
 def _launch(name, win, hr, hc, ok, origins, tile_h, tile_w, stride, *extra):
-    """Check, allocate the output and launch ``name``'s kernel; returns
-    the output."""
+    """Check, allocate the output and launch ``name``'s kernel (an f32
+    window packed first, :func:`_pack`); returns the output."""
     check_sweep_args(win, hr, hc, ok, origins, tile_h, tile_w, stride)
     tensors = (win, hr, hc, ok, origins)
     if any(a.device.type != "cuda" for a in tensors):
@@ -102,12 +111,13 @@ def _launch(name, win, hr, hc, ok, origins, tile_h, tile_w, stride, *extra):
     max_beams = getattr(lib, f"{name}_max_beams")()
     if B > max_beams:
         raise ValueError(f"{name} takes at most {max_beams} beams, got {B}")
+    data = win if name == NAME else _pack(lib, win)
     out = torch.empty((N, T, 2, K * tile_h * tile_w), dtype=torch.float32,
                       device=win.device)
     with torch.cuda.device(win.device):
         stream = torch.cuda.current_stream(win.device).cuda_stream
         rc = getattr(lib, f"{name}_launch")(
-            win.data_ptr(), hr.data_ptr(), hc.data_ptr(), ok.data_ptr(),
+            data.data_ptr(), hr.data_ptr(), hc.data_ptr(), ok.data_ptr(),
             origins.data_ptr(), out.data_ptr(), N, T, B, in_r, in_c, K,
             tile_h, tile_w, stride, *extra, stream,
         )
@@ -136,10 +146,44 @@ def csm_sweep(win, hr, hc, ok, origins, *, tile_h, tile_w, stride,
     return out
 
 
+def _pack(lib, win):
+    """Launch the pack kernel on a checked f32 window: i64 ``[N, in_r,
+    in_c]``, one u64 cell each (:func:`csm_pack_f32`)."""
+    global F32_PACK_LAUNCHES
+    packed = torch.empty(win.shape[:3], dtype=torch.int64, device=win.device)
+    with torch.cuda.device(win.device):
+        stream = torch.cuda.current_stream(win.device).cuda_stream
+        rc = lib.csm_sweep_f32_pack_launch(win.data_ptr(), packed.data_ptr(),
+                                           packed.numel(), stream)
+    if rc != 0:
+        raise RuntimeError(f"csm_sweep_f32 pack launch failed: CUDA error {rc}")
+    F32_PACK_LAUNCHES += 1
+    return packed
+
+
+def csm_pack_f32(win):
+    """Launch the f32 sweep's pack kernel: i64 ``[N, in_r, in_c]``, each
+    cell of the f32 window ``[N, in_r, in_c, 2]`` as one u64 ``m | obs <<
+    56`` with ``m = prob * 2^41`` rounded to an integer (exact for a prob
+    of 0 or in [2^-18, 1]) and ``obs = observed != 0``; the plain version
+    is ``ops/csm.py:pack_f32_window_plain``.  Takes an f32 window on a
+    CUDA device, contiguous and 16-byte aligned; raises on anything else.
+    Launches on the current stream and does not synchronize."""
+    if win.dtype != torch.float32 or win.ndim != 4 or win.shape[3] != 2:
+        raise ValueError(f"csm_pack_f32 takes an f32 [N, in_r, in_c, 2] "
+                         f"window, got {win.dtype} {tuple(win.shape)}")
+    if win.device.type != "cuda":
+        raise ValueError("csm_pack_f32 launches on CUDA tensors only")
+    if not win.is_contiguous() or win.data_ptr() % 16:
+        raise ValueError("csm_pack_f32 takes a contiguous, aligned window")
+    return _pack(_load(NAME_F32), win)
+
+
 def csm_sweep_f32(win, hr, hc, ok, origins, *, tile_h, tile_w, stride):
-    """Launch the f32 sweep kernel: the offsets and output of
-    :func:`csm_sweep`, the sums over an f32 window taken in f64 and
-    rounded to f32 once (exact, ``csrc/csm_sweep_f32.cu``).
+    """Launch the f32 sweep: the offsets and output of :func:`csm_sweep`,
+    the sums over an f32 window exact and rounded to f32 once, as the
+    plain version's f64 sums are (``csrc/csm_sweep_f32.cu``: the pack
+    kernel, then the sweep kernel over its integer cells).
 
     Takes what :func:`check_sweep_args` takes with an f32 window, on a
     CUDA device and contiguous; raises on anything else.  Launches on the

@@ -6,11 +6,14 @@ hash of that source and the flags, and loaded with ``ctypes`` by its
 wrapper (``ops/csm_cuda.py``, ``ops/hit_images_cuda.py``).  Nothing is
 built when a module is imported.  :func:`build` starts one ``nvcc`` per
 source, all at once, so several kernels build in the time of the slowest.
+:func:`sass_counts` counts an instruction in each kernel of a built
+library, from the toolkit's disassembler.
 """
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -75,3 +78,23 @@ def build(*names: str) -> dict:
     if failed:
         raise RuntimeError("\n".join(failed))
     return out
+
+
+def sass_counts(path, opcode: str) -> dict:
+    """How often the SASS instruction ``opcode`` (``F2F.F64.F32``, say;
+    its variants with further suffixes too) occurs in each kernel of the
+    library at ``path``: ``{mangled kernel name: count}``, from the
+    toolkit's ``cuobjdump -sass`` (beside ``nvcc``)."""
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                          capture_output=True, text=True, check=True).stdout
+    pattern = re.compile(rf"\b{re.escape(opcode)}\b")
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            kernel = head.group(1)
+            counts[kernel] = 0
+        elif kernel is not None and pattern.search(line):
+            counts[kernel] += 1
+    return counts

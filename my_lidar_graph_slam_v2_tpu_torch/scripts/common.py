@@ -21,7 +21,6 @@ REPO = Path(__file__).resolve().parents[2]
 
 HBM_BYTES_PER_S = 3.35e12
 INT32_ADDS_PER_S = 132 * 64 * 1.98e9
-F64_ADDS_PER_S = 132 * 64 * 1.98e9
 F32_OPS_PER_S = 67e12
 
 
@@ -42,14 +41,15 @@ def sweep_bound(s, ok, f32=False):
     window (2 B a cell) takes one int32 add: a cell's two u8 values fit in
     one 32-bit word (p | o << 16) and a warp's sums cannot carry between
     the halves, as the kernel adds them.  An f32 window (``f32``, 8 B a
-    cell) takes two f64 adds, one per channel."""
+    cell) takes one 64-bit integer add, two 32-bit ops: the kernel packs a
+    cell's two channels into one u64 of exact fixed point (m | obs << 56)."""
     N, T, B, K = s["N"], s["T"], s["B"], s["origins"].shape[1]
     cell = 8 if f32 else 2
     nbytes = (N * s["in_r"] * s["in_c"] * cell + N * T * B * 9 + N * K * 8
               + N * T * 2 * s["n_off"] * 4)
     adds = int(ok.sum()) * s["n_off"]
     if f32:
-        return bound(nbytes, 2 * adds, F64_ADDS_PER_S)
+        return bound(nbytes, 2 * adds, INT32_ADDS_PER_S)
     return bound(nbytes, adds, INT32_ADDS_PER_S)
 
 

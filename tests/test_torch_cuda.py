@@ -120,9 +120,11 @@ def test_f32_tile_kernel_equals_plain(cuda_device, name, precision):
     kw = dict(tile_h=th, tile_w=tw, stride=stride)
     ref = csm.sweep_tiles_plain(*args, **kw)
     before, before_u8 = csm_cuda.F32_LAUNCHES, csm_cuda.LAUNCHES
+    before_pack = csm_cuda.F32_PACK_LAUNCHES
     out = csm.sweep(*[a.to(cuda_device) for a in args], **kw)
     torch.cuda.synchronize(cuda_device)
     assert csm_cuda.F32_LAUNCHES == before + 1
+    assert csm_cuda.F32_PACK_LAUNCHES == before_pack + 1
     assert csm_cuda.LAUNCHES == before_u8
     assert torch.equal(out.cpu(), ref)
 
@@ -154,6 +156,59 @@ def test_f32_kernel_equals_plain(cuda_device, shape):
     assert torch.equal(out.cpu(), ref)
 
 
+@pytest.mark.parametrize("tile", [(10, 10, 1), (11, 11, 5)])
+def test_f32_kernel_at_2048_beams_all_ones(cuda_device, tile):
+    """The edge of the fixed point: 2,048 beams (the most the kernel
+    takes), every one valid and every offset on a window of 1.0 observed,
+    so each output sums m = 2048 * 2^41 = 2^52 and each warp's observed
+    count is 128: 2048.0 in both channels, equal to the plain version."""
+    rng = np.random.default_rng(2048)
+    N, T, B = 2, 3, 2048
+    win = torch.ones((N, 64, 64, 2), dtype=torch.float32)
+    hr = torch.as_tensor(rng.integers(0, 10, (N, T, B)).astype(np.int32))
+    hc = torch.as_tensor(rng.integers(0, 10, (N, T, B)).astype(np.int32))
+    ok = torch.ones((N, T, B), dtype=torch.bool)
+    origins = torch.zeros((N, 1, 2), dtype=torch.int32)
+    th, tw, stride = tile
+    kw = dict(tile_h=th, tile_w=tw, stride=stride)
+    ref = csm.sweep_tiles_plain(win, hr, hc, ok, origins, **kw)
+    out = csm_cuda.csm_sweep_f32(
+        *[a.to(cuda_device) for a in (win, hr, hc, ok, origins)], **kw)
+    torch.cuda.synchronize(cuda_device)
+    assert torch.equal(ref, torch.full_like(ref, 2048.0))
+    assert torch.equal(out.cpu(), ref)
+
+
+# Windows of the pack: the frontend's (an odd number of cells), one of a
+# precision's roundings, the clamp's ends with unobserved cells that hold
+# a prob, cells below 2^-18 (rounded to the nearest integer), and a
+# 1024 x 1024 map pair.
+@pytest.mark.parametrize("case", ["split 329", "fast", "ends", "below 2^-18",
+                                  "map pair"])
+def test_f32_pack_kernel_equals_plain(cuda_device, case):
+    rng = np.random.default_rng(len(case))
+    shape = {"split 329": (1, 329, 329), "map pair": (2, 1024, 1024)}.get(
+        case, (3, 37, 41))
+    obs = rng.uniform(size=shape) < 0.7
+    p = rng.uniform(1e-3, 1 - 1e-3, shape).astype(np.float32)
+    if case == "ends":
+        p = np.where(rng.uniform(size=shape) < 0.5, np.float32(1e-3),
+                     np.float32(1 - 1e-3))
+    elif case == "below 2^-18":
+        p = (rng.integers(0, 2 ** 12, shape) * 2.0 ** -52).astype(np.float32)
+    win = torch.as_tensor(np.stack(
+        [np.where(obs | (case == "ends"), p, 0), obs], -1).astype(np.float32))
+    if case in ("split 329", "fast"):
+        win = csm.round_window(win, case.split()[0])
+    before, before_sweep = csm_cuda.F32_PACK_LAUNCHES, csm_cuda.F32_LAUNCHES
+    got = csm_cuda.csm_pack_f32(win.to(cuda_device))
+    torch.cuda.synchronize(cuda_device)
+    assert csm_cuda.F32_PACK_LAUNCHES == before + 1
+    assert csm_cuda.F32_LAUNCHES == before_sweep
+    assert got.dtype == torch.int64 and got.shape == shape
+    assert torch.equal(got.cpu(), csm.pack_f32_window_plain(win))
+
+
 def test_f32_kernel_raises_on_what_it_does_not_take(cuda_device):
     rng = np.random.default_rng(2)
     win, hr, hc, ok = [a.to(cuda_device)
@@ -161,7 +216,7 @@ def test_f32_kernel_raises_on_what_it_does_not_take(cuda_device):
     win = win.float()
     org = torch.zeros((1, 1, 2), dtype=torch.int32, device=cuda_device)
     kw = dict(tile_h=5, tile_w=5, stride=1)
-    before = csm_cuda.F32_LAUNCHES
+    before = csm_cuda.F32_LAUNCHES, csm_cuda.F32_PACK_LAUNCHES
     for bad in (dict(win=win.double()), dict(win=win.to(torch.uint8)),
                 dict(win=win.half()), dict(win=win[..., :1].contiguous()),
                 dict(win=win.cpu()), dict(hr=hr.long()),
@@ -176,7 +231,12 @@ def test_f32_kernel_raises_on_what_it_does_not_take(cuda_device):
             csm_cuda.csm_sweep_f32(**a)
     with pytest.raises(ValueError):  # the u8 kernel refuses f32 windows
         csm_cuda.csm_sweep(win, hr, hc, ok, org, **kw)
-    assert csm_cuda.F32_LAUNCHES == before
+    for bad in (win.double(), win[..., :1].contiguous(), win.cpu(),
+                win.transpose(1, 2),
+                win.reshape(-1)[2:2 + 2 * 35 * 36].view(1, 35, 36, 2)):
+        with pytest.raises(ValueError):
+            csm_cuda.csm_pack_f32(bad)
+    assert (csm_cuda.F32_LAUNCHES, csm_cuda.F32_PACK_LAUNCHES) == before
 
 
 @pytest.mark.parametrize("backend", ["matmul", "scatter"])
