@@ -40,12 +40,11 @@
 // beams give sum m <= 2^52, exact in an f64, so
 // float(double(sum m) * 2^-41) is the exact sum rounded once: the f64 sum
 // the plain version takes (ops/csm.py:sweep_plain), bit for bit, in any
-// beam order.  The windows the package builds qualify (probabilities
-// clamped to [1e-3, 1 - 1e-3] or levels / 255, rounded as the precision
-// asks, ops/csm.py:round_window).  A non-zero prob below 2^-18 is outside
-// that guarantee: the pack rounds its m to the nearest integer, so the
-// kernel's sum may differ from the plain f64 sum there; a prob outside
-// [0, 1] is outside it too.
+// beam order.  A non-zero prob below 2^-18 packs to the nearest integer
+// m; the plain version rounds its window the same way before its f64 sum
+// (ops/csm.py:round_to_fixed_point, which changes no value from 2^-18 up),
+// so the two agree on every window.  A prob outside [0, 1] is outside the
+// guarantee.
 //
 // What bounds it: two 32-bit integer ops per (valid beam, offset) (the
 // 64-bit add), 426 M at the loop detector's batch (8 candidates x 208

@@ -15,9 +15,11 @@ candidate by a direct per-beam gather.  On u8 maps both sum levels as
 integers, one multiply by f32(1/255) at the end (the sweep at any
 precision but ``"highest"``; its sums equal the JAX package's bit for
 bit).  The sweep on f32 maps or at ``"highest"`` takes the f32 window
-rounded at the configured precision, the gather f32 maps' values as they
-are (the JAX gather ignores the precision); both sum in f64 and round to
-f32 once, exactly, on either device.
+rounded at the configured precision, the gather f32 maps' values with no
+precision's rounding (the JAX gather ignores the precision); both round
+the values to multiples of 2^-41 (``ops/csm.py:round_to_fixed_point``,
+which changes no value from 2^-18 up), sum in f64 and round to f32 once,
+exactly, on either device.
 """
 from __future__ import annotations
 
@@ -98,8 +100,9 @@ def pixel_scores_gather(cfg: GridSearchConfig, prob, observed, ranges, angles,
     candidate's beams projected at its own fractional offset and read from
     the whole map (no crop; cells off the map read 0) — the JAX package's
     ``_pixel_scores_gather``.  u8 levels are summed in int32 and scaled
-    once by f32(1/255), f32 values summed in f64 and rounded once; known
-    is the count of observed cells."""
+    once by f32(1/255), f32 values rounded by
+    ``ops/csm.py:round_to_fixed_point``, summed in f64 (exactly) and
+    rounded once; known is the count of observed cells."""
     wx, wy, wt = cfg.wins
     T, nx, ny = 2 * wt + 1, 2 * wx + 1, 2 * wy + 1
     dev = prob.device
@@ -112,7 +115,8 @@ def pixel_scores_gather(cfg: GridSearchConfig, prob, observed, ranges, angles,
     u8 = prob.dtype == torch.uint8
     acc = torch.int32 if u8 else torch.float64
     zero = torch.zeros(1, dtype=acc, device=dev)
-    levels = torch.cat([prob.reshape(-1).to(acc), zero])
+    levels = torch.cat([csm.round_to_fixed_point(prob).reshape(-1).to(acc),
+                        zero])
     seen = torch.cat([observed.reshape(-1).to(torch.int32), zero.int()])
     B = ranges.shape[0]
     step = max(1, _GATHER_CHUNK // (nx * ny * B))

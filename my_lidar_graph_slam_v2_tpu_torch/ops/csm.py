@@ -18,17 +18,20 @@ channels interleaved in one cell.  Two window types:
   2^24), so the scores are bit-identical.
 - f32 (an f32 map, or ``precision="highest"``): prob and observed as
   0/1, the prob rounded once as the JAX package's contraction rounds its
-  operand (:func:`round_window`); S is summed in f64 and rounded to f32
-  once.  Every f32 value >= 2^-18 is a multiple of 2^-41 and the sums of
-  at most 2048 such values (each <= 1) stay below 2^52 of those units, so
-  the f64 sums are exact in any order: the kernel (which sums the same
-  values as integers, :func:`pack_f32_window_plain`), its plain version
-  and either device give the same bits.  Every map the package builds
-  qualifies (sigmoid of log-odds clamped to [1e-3, 1 - 1e-3], levels /
-  255, their bf16 roundings); a map with non-zero cells below 2^-18 is
-  outside that guarantee.  The JAX package rounds each f32 add instead,
-  so f32 scores agree with it to a few ulps of the score (the tests:
-  2e-3), and known counts exactly.
+  operand (:func:`round_window`), then, where its cells are summed, to
+  the nearest multiple of 2^-41 (:func:`round_to_fixed_point` in the
+  plain sweep and the hit-image product, the kernel's pack on the card);
+  S is summed in f64 and rounded to f32 once.  The sums of at most 2048
+  multiples of 2^-41 (each <= 1) stay below 2^52 of those units, so the
+  f64 sums are exact in any order: the kernel (which sums the same values
+  as integers, :func:`pack_f32_window_plain`), its plain version and
+  either device give the same bits, for every window.  Every f32 value
+  >= 2^-18 is already such a multiple, so the second rounding changes no
+  cell of any map the package builds (sigmoid of log-odds clamped to
+  [1e-3, 1 - 1e-3], levels / 255, their bf16 roundings); below 2^-18 it
+  moves a cell by at most 2^-42.  The JAX package rounds each f32 add
+  instead, so f32 scores agree with it to a few ulps of the score (the
+  tests: 2e-3), and known counts exactly.
 
 The offsets are rectangular tiles: the strided coarse grid and the dense
 fine grid are one tile each, the block-pruned fine sweep is one 5x5 tile
@@ -268,8 +271,10 @@ def sweep_plain(win, hr, hc, ok, off, scale=quant.INV255):
     """Plain PyTorch form of the sweep at explicit offsets: gather ``win``
     at ``[hr + oj, hc + oi]`` (masked beams and cells off the window read
     a zero cell) and sum over beams: a u8 window in int32, then one f32
-    multiply by ``scale``; an f32 window in f64, then one rounding to f32
-    (no scale; exact, see the module docstring).
+    multiply by ``scale``; an f32 window rounded by
+    :func:`round_to_fixed_point` (as the kernel's pack rounds it), summed
+    in f64, then one rounding to f32 (no scale; exact, see the module
+    docstring).
 
     Shapes: win u8 or f32 ``[N, in_r, in_c, 2]``; hr, hc i32 and ok bool
     ``[N, T, B]``; off i32 ``[N, n_off, 2]``, per candidate.  Returns f32
@@ -279,7 +284,7 @@ def sweep_plain(win, hr, hc, ok, off, scale=quant.INV255):
     L = in_r * in_c
     acc = torch.int32 if win.dtype == torch.uint8 else torch.float64
     flat = torch.cat(
-        [win.reshape(N, L, 2).transpose(1, 2).to(acc),
+        [round_to_fixed_point(win).reshape(N, L, 2).transpose(1, 2).to(acc),
          torch.zeros((N, 2, 1), dtype=acc, device=win.device)],
         dim=-1,
     )
@@ -316,6 +321,20 @@ def pack_f32_window_plain(win):
     m = torch.round(win[..., 0].to(torch.float64) * 2.0 ** F32_FIXED_BITS)
     return (m.to(torch.int64)
             | (win[..., 1] != 0).to(torch.int64) << F32_OBS_SHIFT)
+
+
+def round_to_fixed_point(x):
+    """``x`` (f32) rounded to the nearest multiple of 2^-41, ties to even,
+    as the f32 sweep kernel's pack rounds ``p * 2^41``
+    (``__float2ull_rn``): the result stays f32 and every sum of at most
+    2048 such values in [0, 1] is exact in f64, in any order.  Every f32
+    value from 2^-18 up is already a multiple of 2^-41 and passes
+    unchanged; below 2^-17 the multiples have fewer than 24 significant
+    bits, so the rounding is exact in f32 (scaling by a power of two is
+    exact too).  u8 windows pass through."""
+    if x.dtype == torch.uint8:
+        return x
+    return torch.round(x * 2.0 ** F32_FIXED_BITS) * 2.0 ** -F32_FIXED_BITS
 
 
 def tile_offsets(origins, *, tile_h, tile_w, stride):
@@ -498,9 +517,10 @@ def _sweep_hits(hit_img, inp, off, stride):
     """:func:`_hits_x_patches` of a window from :func:`sweep_input_window`
     (``[in_rows, in_cols, 2]``): a u8 window in f32 (the integer sums stay
     below 2^24, exact in any order; TF32 refused), one multiply by
-    f32(1/255); an f32 window in f64 (the products of integer counts and
-    f32 values are exact, and so are their sums, as the module docstring
-    states), rounded to f32 once.  f32 ``[2, n_off, T]``."""
+    f32(1/255); an f32 window rounded by :func:`round_to_fixed_point`, in
+    f64 (the products of integer counts and its values are exact, and so
+    are their sums, as the module docstring states), rounded to f32 once.
+    f32 ``[2, n_off, T]``."""
     if inp.dtype == torch.uint8:
         if torch.get_float32_matmul_precision() != "highest":
             raise RuntimeError(
@@ -511,8 +531,9 @@ def _sweep_hits(hit_img, inp, off, stride):
         out = _hits_x_patches(hit_img, inp.permute(2, 0, 1).to(torch.float32),
                               off, stride)
         return out * float(quant.INV255)
-    out = _hits_x_patches(hit_img, inp.permute(2, 0, 1).to(torch.float64),
-                          off, stride)
+    out = _hits_x_patches(
+        hit_img, round_to_fixed_point(inp).permute(2, 0, 1).to(torch.float64),
+        off, stride)
     return out.to(torch.float32)
 
 

@@ -164,8 +164,9 @@ def _pack(lib, win):
 def csm_pack_f32(win):
     """Launch the f32 sweep's pack kernel: i64 ``[N, in_r, in_c]``, each
     cell of the f32 window ``[N, in_r, in_c, 2]`` as one u64 ``m | obs <<
-    56`` with ``m = prob * 2^41`` rounded to an integer (exact for a prob
-    of 0 or in [2^-18, 1]) and ``obs = observed != 0``; the plain version
+    56`` with ``m = prob * 2^41`` rounded to an integer as
+    ``ops/csm.py:round_to_fixed_point`` rounds (exact for a prob of 0 or in
+    [2^-18, 1]) and ``obs = observed != 0``; the plain version
     is ``ops/csm.py:pack_f32_window_plain``.  Takes an f32 window on a
     CUDA device, contiguous and 16-byte aligned; raises on anything else.
     Launches on the current stream and does not synchronize."""

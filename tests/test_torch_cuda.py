@@ -10,7 +10,12 @@ import pytest
 import torch
 
 from my_lidar_graph_slam_v2_tpu_torch.ops import csm, csm_cuda, hit_images_cuda
-from torch_sweep_cases import TILE_CASES, f32_window, tile_case
+from torch_sweep_cases import (
+    TILE_CASES,
+    f32_window,
+    small_cell_window,
+    tile_case,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -176,6 +181,29 @@ def test_f32_kernel_at_2048_beams_all_ones(cuda_device, tile):
         *[a.to(cuda_device) for a in (win, hr, hc, ok, origins)], **kw)
     torch.cuda.synchronize(cuda_device)
     assert torch.equal(ref, torch.full_like(ref, 2048.0))
+    assert torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.parametrize("rounded", [False, True], ids=["raw", "rounded"])
+@pytest.mark.parametrize("name", ["one tile", "strided off window",
+                                  "300-beam cell", "unaligned rows"])
+def test_f32_kernel_equals_plain_below_2_18(cuda_device, name, rounded):
+    """A window of cells below 2^-18 (1e-7, 3e-9, 2^-40, ties) among
+    ordinary ones (ROADMAP 3.15): the kernel's pack rounds each cell to a
+    multiple of 2^-41 as ``ops/csm.py:round_to_fixed_point`` does, and the
+    plain sweep rounds its window so, so the two agree bit for bit on the
+    window as it is and on one already rounded."""
+    win_u8, hr, hc, ok, origins, (th, tw, stride), _ = tile_case(name)
+    win = torch.as_tensor(small_cell_window(win_u8, 315))
+    if rounded:
+        win = csm.round_to_fixed_point(win)
+    args = [win] + [torch.as_tensor(a) for a in (hr, hc, ok, origins)]
+    kw = dict(tile_h=th, tile_w=tw, stride=stride)
+    ref = csm.sweep_tiles_plain(*args, **kw)
+    before = csm_cuda.F32_LAUNCHES
+    out = csm.sweep(*[a.to(cuda_device) for a in args], **kw)
+    torch.cuda.synchronize(cuda_device)
+    assert csm_cuda.F32_LAUNCHES == before + 1
     assert torch.equal(out.cpu(), ref)
 
 

@@ -70,6 +70,26 @@ def f32_window(win_u8, seed, precision="highest"):
     return np.stack([np.where(obs, p, 0), obs], -1).astype(np.float32)
 
 
+# Cells below 2^-18, where the sweep rounds a prob to the nearest multiple
+# of 2^-41 (ops/csm.py:round_to_fixed_point): 1e-7 and 3e-9 (rounded),
+# 2^-40 (a multiple already), ties at 2^-42 and 2.5 * 2^-41 (to even),
+# and 3 * 2^-43.
+SMALL_CELLS = np.float32([1e-7, 3e-9, 2.0 ** -40, 2.0 ** -42, 2.5 * 2.0 ** -41,
+                          3 * 2.0 ** -43])
+
+
+def small_cell_window(win_u8, seed):
+    """An f32 window ``[N, in_r, in_c, 2]`` of the shape of ``win_u8``
+    whose observed cells each hold one of :data:`SMALL_CELLS` or, one in
+    five, a prob in [1e-3, 1 - 1e-3]; observed as 0/1."""
+    rng = np.random.default_rng(seed)
+    obs = win_u8[..., 1] > 0
+    p = np.where(rng.uniform(size=obs.shape) < 0.2,
+                 rng.uniform(1e-3, 1 - 1e-3, obs.shape),
+                 SMALL_CELLS[rng.integers(0, len(SMALL_CELLS), obs.shape)])
+    return np.stack([np.where(obs, p, 0), obs], -1).astype(np.float32)
+
+
 def _bf16(x):
     """f32 values rounded to bf16 (to nearest, ties to even), as f32."""
     b = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
