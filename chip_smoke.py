@@ -574,11 +574,19 @@ def check_f32_all_ones(device):
           flush=True)
 
 
+def _counter(name: str) -> int:
+    from my_lidar_graph_slam_v2_tpu_torch.metrics.registry import (
+        MetricManager,
+    )
+    return int(MetricManager.instance().counter(name).value)
+
+
 def run_slice(device, seq, make_slam=None, **factory_kw):
     """Drive the port's frontend over ``seq`` on ``device``, the system of
     ``create_default_slam`` or of ``make_slam(device)``; returns the
-    trajectory, ground truth at keyframes, per-keyframe host times and the
-    frontend's matcher."""
+    trajectory, ground truth at keyframes, per-keyframe host times, the
+    frontend's matcher and the host fetches of the scans (the rise of
+    ``Device.HostFetches``)."""
     from my_lidar_graph_slam_v2_tpu_torch.pipeline.factory import create_default_slam
 
     device = torch.device(device)
@@ -588,6 +596,7 @@ def run_slice(device, seq, make_slam=None, **factory_kw):
     gt, kf_ms = [], []
     if cuda:
         torch.cuda.synchronize(device)
+    fetches = _counter("Device.HostFetches")
     t0 = time.perf_counter()
     for scan, g in zip(seq.scans, seq.ground_truth):
         t = time.perf_counter()
@@ -597,10 +606,11 @@ def run_slice(device, seq, make_slam=None, **factory_kw):
     if cuda:
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
+    fetches = _counter("Device.HostFetches") - fetches
     slam.stop_backend()
     matcher = slam.frontend.scan_matcher
     return dict(est=slam.get_trajectory(), gt=np.asarray(gt), wall=wall,
-                kf_ms=kf_ms, fetches=matcher.host_fetches, matcher=matcher)
+                kf_ms=kf_ms, fetches=fetches, matcher=matcher)
 
 
 def _sync_sites(fn):
@@ -907,12 +917,24 @@ def run_loop_slice(device, seq, *, stages=(), make_slam=loop_slam, count=None,
     :func:`correlative_loop_slam` or :func:`default_loop_slam`) over
     ``seq`` on ``device``; returns the trajectory, loop edges, ground truth
     at keyframes, the loop matcher (the batched detector itself, which has
-    none) and the times of ``stages`` (see :func:`_loop_stages`; a
+    none), the host fetches inside loop detection (the rise of
+    ``Device.HostFetches`` over the detector's calls, its final matcher's
+    included) and the times of ``stages`` (see :func:`_loop_stages`; a
     callable gets the slam object and returns them)."""
     device = torch.device(device)
     slam = make_slam(device, **factory_kw)
     if callable(stages):
         stages = stages(slam)
+    detector = slam.backend.loop_detector
+    detect, fetches = detector.detect, [0]
+
+    def counted(queries):
+        f0 = _counter("Device.HostFetches")
+        out = detect(queries)
+        fetches[0] += _counter("Device.HostFetches") - f0
+        return out
+
+    detector.detect = counted
     timer = StageTimer(device, stages, count)
     gt = []
     with timer:
@@ -924,7 +946,6 @@ def run_loop_slice(device, seq, *, stages=(), make_slam=loop_slam, count=None,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
-    detector = slam.backend.loop_detector
     matcher = getattr(detector, "scan_matcher", detector)
     return dict(
         est=slam.get_trajectory(), gt=np.asarray(gt), wall=wall, slam=slam,
@@ -932,7 +953,7 @@ def run_loop_slice(device, seq, *, stages=(), make_slam=loop_slam, count=None,
                for e in slam.pose_graph.edges if e.is_loop],
         matcher=matcher, matches=getattr(matcher, "matches", None),
         blocks=getattr(matcher, "blocks_swept", None),
-        fetches=matcher.host_fetches, stages=timer.acc,
+        fetches=fetches[0], stages=timer.acc,
     )
 
 
@@ -1117,13 +1138,15 @@ def _logged_detects(calls):
         detect = det.detect
 
         def logged(queries):
-            n0, r0 = csm_cuda.LAUNCHES, det.dense_reruns
+            n0 = csm_cuda.LAUNCHES
+            r0 = _counter("LoopDetector.DenseReruns")
             t = time.perf_counter()
             out = detect(queries)
             calls.append(dict(n=len(queries),
                               ms=(time.perf_counter() - t) * 1e3,
                               launches=csm_cuda.LAUNCHES - n0,
-                              reruns=det.dense_reruns - r0))
+                              reruns=_counter("LoopDetector.DenseReruns")
+                              - r0))
             return out
 
         det.detect = logged
@@ -1460,7 +1483,7 @@ def check_hill_climbing_frontend(device):
         keyframe_ms_median=statistics.median(gpu["kf_ms"][1:]),
         cpu_ms_per_keyframe=1e3 * cpu["wall"] / max(len(cpu["est"]), 1),
         matches=m.matches, iterations_per_keyframe=m.iterations / m.matches,
-        host_fetches_per_keyframe=m.host_fetches / m.matches,
+        host_fetches_per_keyframe=gpu["fetches"] / m.matches,
         csm_sweep_launches=launches,
         ate_m=synthetic.ate_rmse(gpu["est"], gpu["gt"]),
         ate_odom_m=synthetic.ate_rmse(odom, seq.ground_truth),

@@ -362,20 +362,22 @@ class PoseGraphOptimizer:
         M, N, E = len(map_poses), len(scan_poses), len(map_idx)
         if E == 0:
             return map_poses, scan_poses, dict(iterations=0, error=0.0)
-        info = np.array(info, np.float32)
-        # Clip the information's spectral norm (see cfg.info_clip)
-        norms = np.linalg.norm(info, ord=2, axis=(1, 2))
-        big = norms > self.info_clip
-        if big.any():
-            info[big] *= (self.info_clip / norms[big])[:, None, None]
-        dev = self.device
-        mp, sp, err, lam, iters, init_err = fetch(optimize_core(
-            self.cfg, M, N,
-            to_device(map_poses, dev, np.float32),
-            to_device(scan_poses, dev, np.float32),
-            self._shards(map_idx, scan_idx, is_loop, rel, info),
-            float(np.float32(self.lam)), self.reduce,
-        ))
+        span = MetricManager.instance().span
+        with span("graph.prepare"):
+            info = np.array(info, np.float32)
+            # Clip the information's spectral norm (see cfg.info_clip)
+            norms = np.linalg.norm(info, ord=2, axis=(1, 2))
+            big = norms > self.info_clip
+            if big.any():
+                info[big] *= (self.info_clip / norms[big])[:, None, None]
+            dev = self.device
+            mp0 = to_device(map_poses, dev, np.float32)
+            sp0 = to_device(scan_poses, dev, np.float32)
+            shards = self._shards(map_idx, scan_idx, is_loop, rel, info)
+        with span("graph.solve"):
+            out = optimize_core(self.cfg, M, N, mp0, sp0, shards,
+                                float(np.float32(self.lam)), self.reduce)
+        mp, sp, err, lam, iters, init_err = fetch(out)
         self.lam = float(lam)
         stats = dict(iterations=int(iters), error=float(err),
                      initial_error=float(init_err))

@@ -13,7 +13,6 @@ implicitly with x64 off.
 from __future__ import annotations
 
 import math
-import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -34,7 +33,7 @@ from ..matching.types import MapRaster
 from ..metrics.registry import MetricManager
 from ..ops import quant, rasterize
 from ..sensor.data import ScanData
-from ..utils.transfer import to_device
+from ..utils.transfer import host_sync, to_device
 
 
 @dataclass(frozen=True)
@@ -182,7 +181,7 @@ class GridMapBuilder:
     def __init__(self, cfg: GridMapBuilderConfig, device):
         self.cfg = cfg
         self.device = torch.device(device)
-        mm = MetricManager.instance()
+        mm = self.metrics = MetricManager.instance()
         vs = mm.value_sequence
         self._m_pg_update_time = vs("GridMapBuilder.PoseGraphUpdateTime")
         self._m_lm_update_time = vs("GridMapBuilder.LocalMapUpdateTime")
@@ -229,14 +228,14 @@ class GridMapBuilder:
 
     def append_scan(self, pose_graph: PoseGraph, relative_scan_pose,
                     scan_pose_covariance, scan_data: ScanData) -> bool:
-        t = time.perf_counter()
-        inserted = self._update_pose_graph(
-            pose_graph, relative_scan_pose, scan_pose_covariance, scan_data
-        )
-        self._m_pg_update_time.observe(int((time.perf_counter() - t) * 1e6))
-        t = time.perf_counter()
-        self._update_grid_map(pose_graph)
-        self._m_lm_update_time.observe(int((time.perf_counter() - t) * 1e6))
+        span = self.metrics.span
+        with span("GridMapBuilder.PoseGraphUpdateTime",
+                  self._m_pg_update_time):
+            inserted = self._update_pose_graph(
+                pose_graph, relative_scan_pose, scan_pose_covariance, scan_data
+            )
+        with span("GridMapBuilder.LocalMapUpdateTime", self._m_lm_update_time):
+            self._update_grid_map(pose_graph)
         self._m_num_local_maps.observe(len(pose_graph.local_map_nodes))
         self._m_num_edges.observe(len(pose_graph.edges))
         lm = self.latest_local_map()
@@ -297,7 +296,8 @@ class GridMapBuilder:
         """Fetch the device-accumulated out-of-extent hit count into the
         ``GridMapBuilder.OutOfExtentHits`` counter (one transfer)."""
         if self._oob_dev is not None:
-            v = int(self._oob_dev)
+            with host_sync():
+                v = int(self._oob_dev)
             if v:
                 self._m_oob_hits.increment(v)
             self._oob_dev = None
@@ -412,7 +412,6 @@ class GridMapBuilder:
         """Rebuild the rolling matching map from the last N scans
         (``GridMapBuilder::UpdateLatestMap``, grid_map_builder.cpp:497-532);
         incremental mode re-folds the cached per-scan deltas."""
-        t0 = time.perf_counter()
         cfg = self.cfg
         nodes = pose_graph.scan_nodes
         n = min(len(nodes), cfg.num_scans_for_latest_map)
@@ -420,22 +419,21 @@ class GridMapBuilder:
         self.latest_scan_id_min = nodes[first].node_id
         self.latest_scan_id_max = nodes[-1].node_id
         try:
-            if cfg.latest_map_incremental and self._update_latest_incremental(
-                nodes[first:]
-            ):
-                return
-            self.latest_map_pose = nodes[first].global_pose.copy()
-            lo, obs, offset = self._new_raster(cfg.latest_map_rows,
-                                               cfg.latest_map_cols)
-            entries = [(nd.global_pose, nd.scan_data) for nd in nodes[first:]]
-            self.latest_logodds, self.latest_observed = self._integrate(
-                lo, obs, offset, self.latest_map_pose, entries
-            )
-            self.latest_offset = offset
+            with self.metrics.span("GridMapBuilder.LatestMapUpdateTime",
+                                   self._m_latest_update_time):
+                if (cfg.latest_map_incremental
+                        and self._update_latest_incremental(nodes[first:])):
+                    return
+                self.latest_map_pose = nodes[first].global_pose.copy()
+                lo, obs, offset = self._new_raster(cfg.latest_map_rows,
+                                                   cfg.latest_map_cols)
+                entries = [(nd.global_pose, nd.scan_data)
+                           for nd in nodes[first:]]
+                self.latest_logodds, self.latest_observed = self._integrate(
+                    lo, obs, offset, self.latest_map_pose, entries
+                )
+                self.latest_offset = offset
         finally:
-            self._m_latest_update_time.observe(
-                int((time.perf_counter() - t0) * 1e6)
-            )
             if self.latest_logodds is not None:
                 self._m_latest_memory.observe(
                     5 * self.latest_logodds.shape[0]
@@ -508,23 +506,22 @@ class GridMapBuilder:
         incremental path does not apply.  Like the JAX builder, this
         updates latest_map_pose and the id range but leaves the latest
         raster stale: raster readers go through update_latest_map()."""
-        t0 = time.perf_counter()
         cfg = self.cfg
         if not cfg.latest_map_incremental:
             return None
         nodes = pose_graph.scan_nodes
         if not nodes:
             return None
-        n = min(len(nodes), cfg.num_scans_for_latest_map)
-        fold = self._fold_window_inputs(nodes[len(nodes) - n:])
-        if fold is None:
-            return None
-        self.latest_scan_id_min = nodes[len(nodes) - n].node_id
-        self.latest_scan_id_max = nodes[-1].node_id
-        self.latest_map_pose = fold["map_pose"].copy()
-        self._m_latest_update_time.observe(
-            int((time.perf_counter() - t0) * 1e6)
-        )
+        with self.metrics.span("GridMapBuilder.LatestMapUpdateTime",
+                               self._m_latest_update_time) as sp:
+            n = min(len(nodes), cfg.num_scans_for_latest_map)
+            fold = self._fold_window_inputs(nodes[len(nodes) - n:])
+            if fold is None:
+                sp.drop()
+                return None
+            self.latest_scan_id_min = nodes[len(nodes) - n].node_id
+            self.latest_scan_id_max = nodes[-1].node_id
+            self.latest_map_pose = fold["map_pose"].copy()
         return fold
 
     def _update_latest_incremental(self, window_nodes) -> bool:

@@ -12,7 +12,6 @@ maps.  The detector runs on its scan matcher's device.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import List
 
@@ -97,45 +96,41 @@ class LoopDetectorCorrelative:
         self._m_num_queries = vs(f"{name}.NumOfQueries")
         self._m_num_detections = vs(f"{name}.NumOfDetections")
         self._m_precomp_memory = vs(f"{name}.PrecompMapMemoryUsage")
+        self._spans = (f"{name}.InputSetupTime", f"{name}.LoopDetectionTime")
 
     def detect(self, queries) -> List[dict]:
+        span = MetricManager.instance().span
         results = []
         for q in queries:
-            t0 = time.perf_counter()
-            scan_node = q["query_node"]
-            local_map = q["local_map"]
-            map_node = q["local_map_node"]
-            assert local_map.finished, "loop detection against unfinished map"
+            with span(self._spans[0], self._m_setup_time):
+                scan_node = q["query_node"]
+                local_map = q["local_map"]
+                map_node = q["local_map_node"]
+                assert local_map.finished, "loop detection against unfinished map"
 
-            raster = self.map_cache.raster(local_map)
-            map_local_pose = P.inverse_compound(
-                map_node.global_pose, scan_node.global_pose
-            )
-            arrays = scan_to_arrays(scan_node.scan_data,
-                                    self.cfg.beam_capacity, self.device)
-            self._m_setup_time.observe(int((time.perf_counter() - t0) * 1e6))
-            t1 = time.perf_counter()
-            summary = self.scan_matcher.optimize_pose(
-                ScanMatchingQuery(raster, arrays, map_local_pose),
-                score_threshold=self.cfg.score_threshold,
-                known_rate_threshold=self.cfg.known_rate_threshold,
-            )
-            if not summary.pose_found:
-                # Gate-failed candidates spent detection time too
-                self._m_detection_time.observe(
-                    int((time.perf_counter() - t1) * 1e6)
+                raster = self.map_cache.raster(local_map)
+                map_local_pose = P.inverse_compound(
+                    map_node.global_pose, scan_node.global_pose
                 )
-                continue
-            if getattr(self.scan_matcher, "fused", False):
-                # CSM + GN refinement already ran in one fused sequence
-                final = summary
-            else:
-                final = self.final_scan_matcher.optimize_pose(
-                    ScanMatchingQuery(raster, arrays, summary.estimated_pose)
+                arrays = scan_to_arrays(scan_node.scan_data,
+                                        self.cfg.beam_capacity, self.device)
+            # Gate-failed candidates spent detection time too
+            with span(self._spans[1], self._m_detection_time):
+                summary = self.scan_matcher.optimize_pose(
+                    ScanMatchingQuery(raster, arrays, map_local_pose),
+                    score_threshold=self.cfg.score_threshold,
+                    known_rate_threshold=self.cfg.known_rate_threshold,
                 )
-            self._m_detection_time.observe(
-                int((time.perf_counter() - t1) * 1e6)
-            )
+                if not summary.pose_found:
+                    continue
+                if getattr(self.scan_matcher, "fused", False):
+                    # CSM + GN refinement already ran in one fused sequence
+                    final = summary
+                else:
+                    final = self.final_scan_matcher.optimize_pose(
+                        ScanMatchingQuery(raster, arrays,
+                                          summary.estimated_pose)
+                    )
             results.append(dict(
                 relative_pose=final.estimated_pose,
                 local_map_id=local_map.local_map_id,

@@ -74,8 +74,8 @@ def branch_bound_core(cfg: BranchBoundConfig, prob, observed, pyr_p, pyr_o,
                       ranges, angles, mask, sensor_pose, offset_xy,
                       score_threshold, known_rate_threshold):
     """Port of ``_branch_bound_core``: returns ``(pose, score, found, cost
-    / n, cov)`` as device tensors and ``stats`` (blocks swept, host
-    fetches made).  u8 or f32 maps: the bound and block sweeps are
+    / n, cov)`` as device tensors and ``stats`` (blocks swept: each one
+    host fetch, after the bound order's).  u8 or f32 maps: the bound and block sweeps are
     ``ops/csm.py:sweep_from_hits`` at the configured precision (f32 on a
     u8 window, f64 on an f32 one, exact either way)."""
     csm.check_precision(cfg.precision)
@@ -117,7 +117,6 @@ def branch_bound_core(cfg: BranchBoundConfig, prob, observed, pyr_p, pyr_o,
     order = torch.argsort(-bound, stable=True)
     thr_sum = score_threshold * n_valid  # the gates compare score sums
     bound_h, order_h, thr_h = fetch((bound, order, thr_sum))
-    fetches = 1
 
     # 3. fine-sweep blocks until the next bound cannot win
     best_h = -math.inf
@@ -144,7 +143,6 @@ def branch_bound_core(cfg: BranchBoundConfig, prob, observed, pyr_p, pyr_o,
         by = torch.where(better, bj * block + a % block, by)
         (best_h,) = fetch((best_sum,))
         best_h = float(best_h)
-        fetches += 1
         i += 1
 
     best_score = best_sum * norm
@@ -168,20 +166,19 @@ def branch_bound_core(cfg: BranchBoundConfig, prob, observed, pyr_p, pyr_o,
         cfg.resolution, offset_xy,
     )
     return ((best_sensor_pose, best_score, pose_found, ncost, cov),
-            dict(blocks_swept=i, fetches=fetches))
+            dict(blocks_swept=i))
 
 
 class ScanMatcherBranchBound:
     """Host wrapper holding the static config, the device and counters:
-    ``matches``, ``blocks_swept`` and ``host_fetches`` (the result fetch
-    included)."""
+    ``matches`` and ``blocks_swept`` (a match fetches once per swept
+    block and twice besides)."""
 
     def __init__(self, cfg: BranchBoundConfig, device):
         self.cfg = cfg
         self.device = torch.device(device)
         self.matches = 0
         self.blocks_swept = 0
-        self.host_fetches = 0
 
     def pyramid_of(self, grid_map):
         """Level-``bound_height`` pyramid maps, cached on the raster's
@@ -212,7 +209,6 @@ class ScanMatcherBranchBound:
         pose_s, score, found, ncost, cov = fetch(out)
         self.matches += 1
         self.blocks_swept += stats["blocks_swept"]
-        self.host_fetches += stats["fetches"] + 1
         est = P.move_backward(pose_s, scan.rel_sensor_pose)
         return ScanMatchingSummary(
             pose_found=bool(found),

@@ -26,7 +26,6 @@ multiples of 1/255, tie often.
 from __future__ import annotations
 
 import math
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -361,7 +360,7 @@ class ScanMatcherCorrelative:
         self.device = torch.device(device)
         self.name = name
         self.metrics = MatcherMetrics(name)
-        self.host_fetches = 0
+        self._spans = (f"{name}.InputSetupTime", f"{name}.OptimizationTime")
 
     def coarse_of(self, grid_map: MapRaster):
         return coarse_of(grid_map, self.cfg.low_resolution)
@@ -369,34 +368,35 @@ class ScanMatcherCorrelative:
     def optimize_pose(self, query: ScanMatchingQuery,
                       score_threshold: float = 0.0,
                       known_rate_threshold: float = 0.0) -> ScanMatchingSummary:
-        t0 = time.perf_counter()
-        gm, scan = query.grid_map, query.scan
-        sensor_pose = P.compound(query.initial_pose, scan.rel_sensor_pose)
-        coarse_prob, coarse_obs = self.coarse_of(gm)
+        span = MetricManager.instance().span
         mm = self.metrics
-        mm.InputSetupTime.observe(int((time.perf_counter() - t0) * 1e6))
-        t1 = time.perf_counter()
-        args = (
-            self.cfg, gm.prob, gm.observed, coarse_prob, coarse_obs,
-            scan.ranges, scan.angles, scan.mask,
-            to_device(sensor_pose, self.device, np.float32),
-            to_device(gm.offset_xy, self.device, np.float32),
-            float(np.float32(score_threshold)),
-            float(np.float32(known_rate_threshold)),
-        )
-        # One device-to-host fetch for the whole result tuple.
-        out = fetch(correlative_core(*args))
-        self.host_fetches += 1
-        if not out[-1]:
-            # A prune could not certify the argmax: redo densely.
-            MetricManager.instance().counter(
-                f"{self.name}.DenseFallbacks"
-            ).increment()
-            out = fetch(correlative_core(*args, dense=True))
-            self.host_fetches += 1
-        pose_s, score, known, found, ncost, cov, n_proc, n_total, _ = out
-        est_pose = P.move_backward(pose_s, scan.rel_sensor_pose)
-        mm.OptimizationTime.observe(int((time.perf_counter() - t1) * 1e6))
+        with span(self._spans[0], mm.InputSetupTime):
+            gm, scan = query.grid_map, query.scan
+            sensor_pose = P.compound(query.initial_pose, scan.rel_sensor_pose)
+            coarse_prob, coarse_obs = self.coarse_of(gm)
+        with span(self._spans[1], mm.OptimizationTime):
+            args = (
+                self.cfg, gm.prob, gm.observed, coarse_prob, coarse_obs,
+                scan.ranges, scan.angles, scan.mask,
+                to_device(sensor_pose, self.device, np.float32),
+                to_device(gm.offset_xy, self.device, np.float32),
+                float(np.float32(score_threshold)),
+                float(np.float32(known_rate_threshold)),
+            )
+            with span("match.search"):
+                out = correlative_core(*args)
+            # One device-to-host fetch for the whole result tuple.
+            out = fetch(out)
+            if not out[-1]:
+                # A prune could not certify the argmax: redo densely.
+                MetricManager.instance().counter(
+                    f"{self.name}.DenseFallbacks"
+                ).increment()
+                with span("match.search"):
+                    out = correlative_core(*args, dense=True)
+                out = fetch(out)
+            pose_s, score, known, found, ncost, cov, n_proc, n_total, _ = out
+            est_pose = P.move_backward(pose_s, scan.rel_sensor_pose)
         self._observe_metrics(
             query, scan, est_pose, score, ncost, int(n_proc), int(n_total)
         )

@@ -188,14 +188,13 @@ def grid_search_core(cfg: GridSearchConfig, prob, observed, ranges, angles,
 
 
 class ScanMatcherGridSearch:
-    """Host wrapper holding the static config, the device and counters:
-    ``matches`` and ``host_fetches`` (one per match)."""
+    """Host wrapper holding the static config, the device and the count
+    of ``matches`` (one fetch each)."""
 
     def __init__(self, cfg: GridSearchConfig, device):
         self.cfg = cfg
         self.device = torch.device(device)
         self.matches = 0
-        self.host_fetches = 0
 
     def optimize_pose(self, query: ScanMatchingQuery,
                       score_threshold: float = 0.0,
@@ -210,7 +209,6 @@ class ScanMatcherGridSearch:
             float(np.float32(known_rate_threshold)),
         ))
         self.matches += 1
-        self.host_fetches += 1
         return ScanMatchingSummary(
             pose_found=bool(found),
             normalized_cost=float(ncost),

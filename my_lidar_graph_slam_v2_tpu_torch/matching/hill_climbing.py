@@ -52,15 +52,14 @@ class HillClimbingConfig:
 
 class ScanMatcherHillClimbing:
     """Host wrapper holding the static config, the device and counters:
-    ``matches``, ``iterations`` and ``host_fetches`` (one per iteration,
-    plus the start cost and the covariance)."""
+    ``matches`` and ``iterations`` (a fetch each, plus the start cost's
+    and the covariance's)."""
 
     def __init__(self, cfg: HillClimbingConfig, device):
         self.cfg = cfg
         self.device = torch.device(device)
         self.matches = 0
         self.iterations = 0
-        self.host_fetches = 0
 
     def optimize_pose(self, query: ScanMatchingQuery, **_) -> ScanMatchingSummary:
         cfg = self.cfg
@@ -75,7 +74,6 @@ class ScanMatcherHillClimbing:
             c = cost_at(cfg.cost, *args, to_device(poses, self.device,
                                                    np.float32),
                         cfg.resolution, off)
-            self.host_fetches += 1
             return fetch((c,))[0].astype(np.float32)
 
         min_cost = float(costs(sensor_pose[None])[0])
@@ -107,7 +105,6 @@ class ScanMatcherHillClimbing:
                             to_device(best, self.device, np.float32),
                             cfg.resolution, off)
         (cov,) = fetch((cov,))
-        self.host_fetches += 1
         self.matches += 1
         self.iterations += iters
         return ScanMatchingSummary(

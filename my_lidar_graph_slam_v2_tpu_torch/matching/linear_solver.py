@@ -6,7 +6,6 @@ matcher's device; the result comes back in one host fetch.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -34,22 +33,23 @@ class LinearSolverConfig:
 def refine_core(cfg, prob, observed, ranges, angles, mask, sensor_pose,
                 offset_xy):
     """(pose, cost / n, cov, iters, initial cost / n) as device tensors."""
-    n = torch.clamp(mask.sum().to(torch.float32), min=1.0)
-    cost0 = gauss_newton.cost(
-        prob, observed, ranges, angles, mask, sensor_pose, cfg.resolution,
-        offset_xy,
-    )
-    pose, cost, iters = gauss_newton.gn_refine(
-        prob, observed, ranges, angles, mask, sensor_pose, cfg.resolution,
-        offset_xy,
-        max_iterations=cfg.num_iterations_max,
-        convergence_threshold=cfg.convergence_threshold,
-        initial_lambda=cfg.initial_lambda,
-    )
-    cov = gauss_newton.covariance(
-        prob, observed, ranges, angles, mask, pose, cfg.resolution,
-        offset_xy, cfg.covariance_scale,
-    )
+    with MetricManager.instance().span("match.refine"):
+        n = torch.clamp(mask.sum().to(torch.float32), min=1.0)
+        cost0 = gauss_newton.cost(
+            prob, observed, ranges, angles, mask, sensor_pose,
+            cfg.resolution, offset_xy,
+        )
+        pose, cost, iters = gauss_newton.gn_refine(
+            prob, observed, ranges, angles, mask, sensor_pose,
+            cfg.resolution, offset_xy,
+            max_iterations=cfg.num_iterations_max,
+            convergence_threshold=cfg.convergence_threshold,
+            initial_lambda=cfg.initial_lambda,
+        )
+        cov = gauss_newton.covariance(
+            prob, observed, ranges, angles, mask, pose, cfg.resolution,
+            offset_xy, cfg.covariance_scale,
+        )
     return pose, torch.div(cost, n), cov, iters, torch.div(cost0, n)
 
 
@@ -74,20 +74,20 @@ class ScanMatcherLinearSolver:
         self.device = torch.device(device)
         self.name = name
         self.metrics = LinearSolverMetrics(name)
+        self._span = f"{name}.OptimizationTime"
 
     def optimize_pose(self, query: ScanMatchingQuery, **_) -> ScanMatchingSummary:
-        t0 = time.perf_counter()
-        gm, scan = query.grid_map, query.scan
-        sensor_pose = P.compound(query.initial_pose, scan.rel_sensor_pose)
-        pose, ncost, cov, iters, ncost0 = fetch(refine_core(
-            self.cfg, gm.prob, gm.observed, scan.ranges, scan.angles,
-            scan.mask,
-            to_device(sensor_pose, self.device, np.float32),
-            to_device(gm.offset_xy, self.device, np.float32),
-        ))
-        est_pose = P.move_backward(pose, scan.rel_sensor_pose)
         mm = self.metrics
-        mm.OptimizationTime.observe(int((time.perf_counter() - t0) * 1e6))
+        with MetricManager.instance().span(self._span, mm.OptimizationTime):
+            gm, scan = query.grid_map, query.scan
+            sensor_pose = P.compound(query.initial_pose, scan.rel_sensor_pose)
+            pose, ncost, cov, iters, ncost0 = fetch(refine_core(
+                self.cfg, gm.prob, gm.observed, scan.ranges, scan.angles,
+                scan.mask,
+                to_device(sensor_pose, self.device, np.float32),
+                to_device(gm.offset_xy, self.device, np.float32),
+            ))
+            est_pose = P.move_backward(pose, scan.rel_sensor_pose)
         diff = P.inverse_compound(query.initial_pose, est_pose)
         mm.DiffTranslation.observe(float(P.distance(diff)))
         mm.DiffRotation.observe(abs(float(diff[2])))

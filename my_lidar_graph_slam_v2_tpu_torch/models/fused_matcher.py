@@ -37,24 +37,27 @@ def fused_body(ccfg: CorrelativeConfig, lcfg: LinearSolverConfig, prob,
                *, dense: bool = False):
     """CSM search then GN refinement and covariance; returns the JAX
     ``_fused_body``'s 12-tuple as device tensors."""
-    (csm_pose, score, known, found, csm_ncost, _, n_proc, n_total,
-     exact) = correlative_core(
-        ccfg, prob, observed, coarse_p, coarse_o, ranges, angles, mask,
-        sensor_pose, offset_xy, score_threshold, known_rate_threshold,
-        dense=dense,
-    )
-    n = torch.clamp(mask.sum().to(torch.float32), min=1.0)
-    refined, cost, iters = gauss_newton.gn_refine(
-        prob, observed, ranges, angles, mask, csm_pose, ccfg.resolution,
-        offset_xy,
-        max_iterations=lcfg.num_iterations_max,
-        convergence_threshold=lcfg.convergence_threshold,
-        initial_lambda=lcfg.initial_lambda,
-    )
-    cov = gauss_newton.covariance(
-        prob, observed, ranges, angles, mask, refined, ccfg.resolution,
-        offset_xy, lcfg.covariance_scale,
-    )
+    span = MetricManager.instance().span
+    with span("match.search"):
+        (csm_pose, score, known, found, csm_ncost, _, n_proc, n_total,
+         exact) = correlative_core(
+            ccfg, prob, observed, coarse_p, coarse_o, ranges, angles, mask,
+            sensor_pose, offset_xy, score_threshold, known_rate_threshold,
+            dense=dense,
+        )
+    with span("match.refine"):
+        n = torch.clamp(mask.sum().to(torch.float32), min=1.0)
+        refined, cost, iters = gauss_newton.gn_refine(
+            prob, observed, ranges, angles, mask, csm_pose, ccfg.resolution,
+            offset_xy,
+            max_iterations=lcfg.num_iterations_max,
+            convergence_threshold=lcfg.convergence_threshold,
+            initial_lambda=lcfg.initial_lambda,
+        )
+        cov = gauss_newton.covariance(
+            prob, observed, ranges, angles, mask, refined, ccfg.resolution,
+            offset_xy, lcfg.covariance_scale,
+        )
     return (refined, cov, score, known, found, torch.div(cost, n), iters,
             n_proc, n_total, csm_pose, csm_ncost, exact)
 
@@ -67,10 +70,11 @@ def fused_core_deltas(ccfg: CorrelativeConfig, lcfg: LinearSolverConfig,
     """The whole frontend keyframe match (``_fused_core_deltas``):
     latest-map fold from per-scan deltas -> u8 quantize -> pool-on-crop
     -> coarse + fine CSM sweeps -> GN refinement -> covariance."""
-    lo, obs = rasterize.fold_shifted_deltas(
-        deltas, shifts, valid, max_shift=max_shift
-    )
-    prob = quant.quantize_prob(lo, obs)
+    with MetricManager.instance().span("match.fold"):
+        lo, obs = rasterize.fold_shifted_deltas(
+            deltas, shifts, valid, max_shift=max_shift
+        )
+        prob = quant.quantize_prob(lo, obs)
     return fused_body(
         ccfg, lcfg, prob, obs, None, None, ranges, angles, mask,
         sensor_pose, offset_xy, score_threshold, known_rate_threshold,
@@ -98,22 +102,18 @@ class FusedCorrelativeGNMatcher:
         self.final_metrics = (
             LinearSolverMetrics(final_name) if final_name else None
         )
-        # Device-to-host transfers made by this matcher (one per match,
-        # two on a dense fallback).
-        self.host_fetches = 0
+        self._setup_span = f"{name}.InputSetupTime"
 
     def coarse_of(self, grid_map):
         return self._series.coarse_of(grid_map)
 
     def _run(self, core, args, kw):
         out = fetch(core(*args, **kw))
-        self.host_fetches += 1
         if not out[-1]:
             MetricManager.instance().counter(
                 f"{self.name}.DenseFallbacks"
             ).increment()
             out = fetch(core(*args, dense=True, **kw))
-            self.host_fetches += 1
         return out
 
     def optimize_pose_deltas(self, fold, scan, initial_pose,
@@ -139,13 +139,11 @@ class FusedCorrelativeGNMatcher:
                       score_threshold: float = 0.0,
                       known_rate_threshold: float = 0.0
                       ) -> ScanMatchingSummary:
-        t0 = time.perf_counter()
-        gm, scan = query.grid_map, query.scan
-        sensor_pose = P.compound(query.initial_pose, scan.rel_sensor_pose)
-        coarse_p, coarse_o = self.coarse_of(gm)
-        self.metrics.InputSetupTime.observe(
-            int((time.perf_counter() - t0) * 1e6)
-        )
+        with MetricManager.instance().span(self._setup_span,
+                                           self.metrics.InputSetupTime):
+            gm, scan = query.grid_map, query.scan
+            sensor_pose = P.compound(query.initial_pose, scan.rel_sensor_pose)
+            coarse_p, coarse_o = self.coarse_of(gm)
         t1 = time.perf_counter()
         args = (
             self.ccfg, self.lcfg, gm.prob, gm.observed, coarse_p, coarse_o,

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..graph.optimizer import EdgeShard, OptimizerConfig, PoseGraphOptimizer
+from ..utils.transfer import host_sync
 
 # The JAX optimizer clips every edge's information to this spectral norm
 # (its own constant, not ``OptimizerConfig.info_clip``).
@@ -87,10 +88,11 @@ class RankSum:
         """Element-wise sums of a host array over the ranks: gloo reduces
         it on the host, NCCL on ``device``."""
         t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.backend == "nccl":
-            t = t.to(device)
-        (t,) = self.sum([t])
-        return t.cpu().numpy()
+        if self.backend != "nccl":
+            return self.sum([t])[0].numpy()
+        (t,) = self.sum([t.to(device)])
+        with host_sync():
+            return t.cpu().numpy()
 
     def max(self, t: torch.Tensor) -> torch.Tensor:
         return self._reduce(t, self._dist.ReduceOp.MAX)

@@ -62,9 +62,9 @@ class LoopDetectorShardedCorrelative:
     refinement runs per found candidate afterwards, on the mesh's first
     device, like the reference's final scan matcher.
 
-    ``host_fetches`` counts device-to-host transfers (one per step, one
-    more per dense re-run; the final matcher counts its own) and
-    ``dense_reruns`` the candidates re-run densely."""
+    A step makes one host fetch, and one more per candidate re-run
+    densely, which the registry counter ``LoopDetector.DenseReruns``
+    counts; the final matcher makes its own."""
 
     def __init__(self, cfg, scan_matcher_cfg: CorrelativeConfig,
                  final_scan_matcher, device, resolution: float = 0.05,
@@ -79,17 +79,8 @@ class LoopDetectorShardedCorrelative:
         self.resolution = resolution
         self.map_cache = map_cache or DeviceMapCache(resolution)
         self._fn = make_batched_loop_csm(scan_matcher_cfg)
-        self.host_fetches = 0
-        self.dense_reruns = 0
-        # Bytes staged per detect() for the step's map stacks: the distinct
-        # rasters' u8 prob and bool observed plus their coarse pair
-        # (M * h * w * 4 for M distinct maps of a chunk).  The JAX package
-        # stages C * h * w * 2 for the C padded candidates and pools inside
-        # its jit, so the port stages less whenever the candidates fall in
-        # fewer than C / 2 maps.
-        self._m_stack_bytes = MetricManager.instance().value_sequence(
-            "LoopDetector.MapStackBytes"
-        )
+        self._m_dense_reruns = MetricManager.instance().counter(
+            "LoopDetector.DenseReruns")
 
     def _launch(self, device, queries):
         """Stage ``queries`` on ``device`` and launch their batch (no
@@ -104,7 +95,6 @@ class LoopDetectorShardedCorrelative:
         maps = [torch.stack(m).to(device) for m in (
             [r.prob for r in rasters], [r.observed for r in rasters],
             [c[0] for c in coarse], [c[1] for c in coarse])]
-        nbytes = sum(m.numel() * m.element_size() for m in maps)
 
         (ranges, angles, mask), arrays = scan_arrays_batch(
             [q["query_node"].scan_data for q in queries],
@@ -120,10 +110,9 @@ class LoopDetectorShardedCorrelative:
         offsets_d = to_device(offsets, device, np.float32)
         out = self._fn(*maps, ranges, angles, mask, poses_d, offsets_d,
                        *self._thresholds(), to_device(index, device, np.int64))
-        return dict(out=out, maps=maps, nbytes=nbytes, index=index,
-                    rasters=rasters, arrays=arrays,
-                    beams=(ranges, angles, mask), poses=poses_d,
-                    offsets=offsets_d)
+        return dict(out=out, maps=maps, index=index, rasters=rasters,
+                    arrays=arrays, beams=(ranges, angles, mask),
+                    poses=poses_d, offsets=offsets_d)
 
     def _thresholds(self):
         return (float(np.float32(self.cfg.score_threshold)),
@@ -139,16 +128,16 @@ class LoopDetectorShardedCorrelative:
             return []
         chunks = [c for c in np.array_split(np.arange(len(queries)),
                                             len(self.mesh)) if len(c)]
-        runs = [self._launch(dev, [queries[i] for i in c])
-                for dev, c in zip(self.mesh, chunks)]
-        self._m_stack_bytes.observe(sum(r["nbytes"] for r in runs))
+        span = MetricManager.instance().span
+        with span("match.search"):
+            runs = [self._launch(dev, [queries[i] for i in c])
+                    for dev, c in zip(self.mesh, chunks)]
         # One device-to-host fetch for the whole step, of what the host
         # reads: pose, score, found and exact.
         fields = [[r["out"][k] for r in runs] for k in (0, 1, 3, 6)]
         best_pose, score, found, exact = fetch(tuple(
             f[0] if len(f) == 1 else torch.cat([t.to(self.device) for t in f])
             for f in fields))
-        self.host_fetches += 1
 
         matched = []
         for r in runs:
@@ -158,13 +147,14 @@ class LoopDetectorShardedCorrelative:
                 if not exact[i]:
                     # A prune could not certify this candidate's argmax:
                     # redo it densely through the serial core.
-                    d = fetch(correlative_core(
-                        self.mcfg, *(m[slot] for m in r["maps"]), ranges[j],
-                        angles[j], mask[j], r["poses"][j], r["offsets"][j],
-                        *self._thresholds(), dense=True,
-                    ))
-                    self.host_fetches += 1
-                    self.dense_reruns += 1
+                    with span("match.search"):
+                        d = correlative_core(
+                            self.mcfg, *(m[slot] for m in r["maps"]),
+                            ranges[j], angles[j], mask[j], r["poses"][j],
+                            r["offsets"][j], *self._thresholds(), dense=True,
+                        )
+                    d = fetch(d)
+                    self._m_dense_reruns.increment()
                     best_pose[i], score[i], found[i] = d[0], d[1], d[3]
                 arrays = r["arrays"][j]
                 if arrays.ranges.device != self.device:

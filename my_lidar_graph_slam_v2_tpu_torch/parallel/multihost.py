@@ -52,7 +52,6 @@ from ..core import pose as P2
 from ..grid import values as gv
 from ..matching.correlative import CorrelativeConfig
 from ..matching.types import MapRaster, ScanMatchingQuery
-from ..metrics.registry import MetricManager
 from ..ops import rasterize
 from .distributed import RankSum
 from .loop_sharded import LoopDetectorShardedCorrelative
@@ -184,8 +183,7 @@ class MultiHostLoopDetector:
     ``all_reduce`` gives every rank all results.
 
     ``rasterized_map_ids`` lists the maps this rank asked the map cache
-    for; ``LoopDetector.MapH2DBytes`` observes per step the u8 prob and
-    bool mask bytes of the distinct maps this rank matched against."""
+    for."""
 
     def __init__(self, cfg, scan_matcher_cfg: CorrelativeConfig,
                  final_scan_matcher, mesh, resolution: float = 0.05,
@@ -199,20 +197,10 @@ class MultiHostLoopDetector:
         self.num_processes = ranks.world_size
         self.process_id = ranks.rank
         self.rasterized_map_ids: set = set()
-        self._m_h2d_bytes = MetricManager.instance().value_sequence(
-            "LoopDetector.MapH2DBytes")
 
     @property
     def map_cache(self):
         return self.batch.map_cache
-
-    @property
-    def host_fetches(self) -> int:
-        return self.batch.host_fetches
-
-    @property
-    def dense_reruns(self) -> int:
-        return self.batch.dense_reruns
 
     def detect(self, queries) -> List[dict]:
         if not queries:
@@ -221,12 +209,8 @@ class MultiHostLoopDetector:
                  if owner_of(q["local_map"].local_map_id,
                              self.num_processes) == self.process_id]
         matched = self.batch.match([queries[i] for i in owned])
-        distinct = {}
-        for i, (raster, *_) in zip(owned, matched):
-            distinct[queries[i]["local_map"].local_map_id] = raster
-        self.rasterized_map_ids.update(distinct)
-        self._m_h2d_bytes.observe(
-            sum(2 * r.prob.numel() for r in distinct.values()))
+        self.rasterized_map_ids.update(
+            queries[i]["local_map"].local_map_id for i in owned)
 
         rows = np.zeros((len(queries), 14), np.float64)
         for i, (raster, arrays, pose, score, found) in zip(owned, matched):

@@ -109,6 +109,7 @@ def run(args) -> dict:
     import torch.distributed as dist
 
     from ..datasets import synthetic
+    from ..metrics.registry import MetricManager
     from ..ops import csm_cuda
     from . import multihost
     from .mesh import make_mesh
@@ -139,6 +140,8 @@ def run(args) -> dict:
         detector.detect = counted
         gt = []
         dropped_rasters = dropped_scans = 0
+        reruns = MetricManager.instance().counter("LoopDetector.DenseReruns")
+        reruns0 = reruns.value
         launches0 = csm_cuda.LAUNCHES
         t0 = time.perf_counter()
         for scan, g in zip(seq.scans, seq.ground_truth):
@@ -192,7 +195,7 @@ def run(args) -> dict:
             dropped_scans=dropped_scans,
             global_map_observed_cells=global_map_observed_cells,
             backend_steps=backend.step_count,
-            dense_reruns=detector.dense_reruns,
+            dense_reruns=int(reruns.value - reruns0),
             csm_sweep_launches=launches,
             detects=len(detect_launches),
             detect_sweep_launches=sum(detect_launches),

@@ -9,7 +9,6 @@ the optimizer.  Metric series carry the reference's backend names.
 """
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 from ..metrics.registry import MetricManager
@@ -23,7 +22,7 @@ class LidarGraphSlamBackend:
         self.optimizer = optimizer
         self.inline = inline
         self.step_count = 0
-        m = metrics or MetricManager.instance()
+        m = self._mm = metrics or MetricManager.instance()
         vs = m.value_sequence
         self._m_process_time = vs("Backend.ProcessTime")
         self._m_process_step_time = vs("Backend.ProcessStepTime")
@@ -44,22 +43,25 @@ class LidarGraphSlamBackend:
 
     def run_step(self, parent) -> bool:
         """One backend pass; returns True if an optimization ran."""
-        t0 = time.perf_counter()
-        us = lambda t: int((time.perf_counter() - t) * 1e6)  # noqa: E731
+        with self._mm.span("backend.step", self._m_process_time) as step:
+            if not self._step(parent):
+                return False
+            self._m_process_step_time.observe(step.us())
+            return True
+
+    def _step(self, parent) -> bool:
+        span = self._mm.span
         self.step_count += 1
 
-        t = time.perf_counter()
-        hint = parent.get_loop_search_hint()
-        self._m_search_setup_time.observe(us(t))
+        with span("Backend.LoopSearchSetupTime", self._m_search_setup_time):
+            hint = parent.get_loop_search_hint()
         if hint is None:
             self._m_end_search_setup.observe(self.step_count)
-            self._m_process_time.observe(us(t0))
             return False
         query_map_id = hint["last_finished_map_id"]
 
-        t = time.perf_counter()
-        candidates = self.loop_searcher.search(hint)
-        self._m_search_time.observe(us(t))
+        with span("Backend.LoopSearchTime", self._m_search_time):
+            candidates = self.loop_searcher.search(hint)
         self._m_candidates.observe(len(candidates))
         # The cursor advances before detection runs, so a failed detection
         # still consumes the query map (the JAX package does the same; see
@@ -67,48 +69,38 @@ class LidarGraphSlamBackend:
         parent.mark_loop_search_processed(query_map_id)
         if not candidates:
             self._m_end_search.observe(self.step_count)
-            self._m_process_time.observe(us(t0))
             return False
 
-        t = time.perf_counter()
-        queries = parent.get_loop_detection_queries(candidates)
-        self._m_detection_setup_time.observe(us(t))
+        with span("Backend.LoopDetectionSetupTime",
+                  self._m_detection_setup_time):
+            queries = parent.get_loop_detection_queries(candidates)
 
-        t = time.perf_counter()
-        results = self.loop_detector.detect(queries)
-        self._m_detection_time.observe(us(t))
+        with span("loop.detect", self._m_detection_time):
+            results = self.loop_detector.detect(queries)
         if not results:
             self._m_end_detection.observe(self.step_count)
-            self._m_process_time.observe(us(t0))
             return False
 
-        t = time.perf_counter()
-        parent.append_loop_closing_edges(results)
-        self._m_append_time.observe(us(t))
+        with span("Backend.PoseGraphAppendTime", self._m_append_time):
+            parent.append_loop_closing_edges(results)
         self._m_new_loop_edges.observe(len(results))
 
-        t = time.perf_counter()
-        snapshot = parent.get_pose_graph_for_optimization()
-        self._m_opt_setup_time.observe(us(t))
+        with span("Backend.OptimizationSetupTime", self._m_opt_setup_time):
+            snapshot = parent.get_pose_graph_for_optimization()
         if snapshot is None:
-            self._m_process_time.observe(us(t0))
             return False
         # Block the frontend while poses are being rewritten
         # (NotifyOptimizationStarted/Done, lidar_graph_slam_backend.cpp:172-191)
         parent.notify_optimization_started()
         try:
             n_maps, n_scans, map_poses, scan_poses, edges = snapshot
-            t = time.perf_counter()
-            map_opt, scan_opt, _ = self.optimizer.optimize(
-                map_poses, scan_poses, edges
-            )
-            self._m_opt_time.observe(us(t))
-            t = time.perf_counter()
-            parent.after_loop_closure(n_maps, n_scans, map_opt, scan_opt)
-            self._m_update_time.observe(us(t))
+            with span("graph.optimize", self._m_opt_time):
+                map_opt, scan_opt, _ = self.optimizer.optimize(
+                    map_poses, scan_poses, edges
+                )
+            with span("graph.write_back", self._m_update_time):
+                parent.after_loop_closure(n_maps, n_scans, map_opt, scan_opt)
         finally:
             parent.notify_optimization_done()
         self._m_end_closure.observe(self.step_count)
-        self._m_process_step_time.observe(us(t0))
-        self._m_process_time.observe(us(t0))
         return True

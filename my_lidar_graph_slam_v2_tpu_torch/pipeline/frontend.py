@@ -9,7 +9,6 @@ the frontend's device as f32.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -125,8 +124,12 @@ class LidarGraphSlamFrontend:
 
     # ------------------------------------------------------------------
     def process_scan(self, parent, raw_scan: ScanData, odom_pose) -> bool:
-        t_start = time.perf_counter()
-        us = lambda t: int((time.perf_counter() - t) * 1e6)  # noqa: E731
+        with self.metrics.span("Frontend.ProcessTime",
+                               self._m_process_time) as total:
+            return self._process_scan(parent, raw_scan, odom_pose, total)
+
+    def _process_scan(self, parent, raw_scan, odom_pose, total) -> bool:
+        span = self.metrics.span
         cfg = self.cfg
         odom_pose = np.asarray(odom_pose, np.float64)
         rel_odom = (
@@ -152,7 +155,6 @@ class LidarGraphSlamFrontend:
             or self.process_count == 0
         ) and elapsed >= 0.0
         if not update_needed:
-            self._m_process_time.observe(us(t_start))
             return False
 
         self._m_interval_travel.observe(self.accumulated_travel_dist)
@@ -161,21 +163,18 @@ class LidarGraphSlamFrontend:
 
         scan = (self.accumulator.compute_concatenated_scan()
                 if self.accumulator is not None else raw_scan)
-        if self.process_count > 0:
-            t_setup = time.perf_counter()
-        if self.outlier_filter is not None:
-            scan = self.outlier_filter.remove_outliers(scan)
-        if self.interpolator is not None:
-            scan = self.interpolator.interpolate(scan)
-        if self.process_count > 0:
-            self._m_setup_time.observe(us(t_setup))
+        with span("Frontend.ScanDataSetupTime", self._m_setup_time
+                  if self.process_count > 0 else None):
+            if self.outlier_filter is not None:
+                scan = self.outlier_filter.remove_outliers(scan)
+            if self.interpolator is not None:
+                scan = self.interpolator.interpolate(scan)
 
         if self.process_count == 0:
-            t_update = time.perf_counter()
-            parent.append_first_node_and_edge(
-                np.asarray(cfg.initial_pose, np.float64), scan
-            )
-            self._m_data_update_time.observe(us(t_update))
+            with span("mapping.update", self._m_data_update_time):
+                parent.append_first_node_and_edge(
+                    np.asarray(cfg.initial_pose, np.float64), scan
+                )
         else:
             parent.wait_for_optimization()
             # Single-sequence path: hand the matcher the latest map as raw
@@ -198,26 +197,26 @@ class LidarGraphSlamFrontend:
             map_local_initial = P.inverse_compound(latest_map_pose, initial_pose)
 
             scan_arrays = self._scan_arrays(scan)
-            t_match = time.perf_counter()
-            if fold_data is not None:
-                summary = self.scan_matcher.optimize_pose_deltas(
-                    fold, scan_arrays, map_local_initial
-                )
-            else:
-                summary = self.scan_matcher.optimize_pose(
-                    ScanMatchingQuery(latest_map, scan_arrays, map_local_initial)
-                )
-            self._m_matching_time.observe(us(t_match))
-            t_final = time.perf_counter()
-            if summary.pose_found:
-                if getattr(self.scan_matcher, "fused", False):
-                    final_summary = summary
-                else:
-                    final_summary = self.final_scan_matcher.optimize_pose(
-                        ScanMatchingQuery(latest_map, scan_arrays,
-                                          summary.estimated_pose)
+            with span("frontend.match", self._m_matching_time):
+                if fold_data is not None:
+                    summary = self.scan_matcher.optimize_pose_deltas(
+                        fold, scan_arrays, map_local_initial
                     )
-            self._m_final_matching_time.observe(us(t_final))
+                else:
+                    summary = self.scan_matcher.optimize_pose(
+                        ScanMatchingQuery(latest_map, scan_arrays,
+                                          map_local_initial)
+                    )
+            with span("Frontend.FinalScanMatchingTime",
+                      self._m_final_matching_time):
+                if summary.pose_found:
+                    if getattr(self.scan_matcher, "fused", False):
+                        final_summary = summary
+                    else:
+                        final_summary = self.final_scan_matcher.optimize_pose(
+                            ScanMatchingQuery(latest_map, scan_arrays,
+                                              summary.estimated_pose)
+                        )
 
             if not summary.pose_found:
                 # Odometry fallback (the reference asserts here,
@@ -252,9 +251,8 @@ class LidarGraphSlamFrontend:
                 else:
                     relative, covariance = scan_relative, scan_cov_world
 
-            t_update = time.perf_counter()
-            parent.append_node_and_edge(relative, covariance, scan)
-            self._m_data_update_time.observe(us(t_update))
+            with span("mapping.update", self._m_data_update_time):
+                parent.append_node_and_edge(relative, covariance, scan)
 
             accum = parent.accum_travel_dist()
             if accum - self.last_loop_detection_dist >= cfg.loop_detection_threshold:
@@ -267,8 +265,7 @@ class LidarGraphSlamFrontend:
         self.last_map_update_odom_pose = odom_pose
         self.last_map_update_time = raw_scan.time_stamp
         self._m_process_count.increment()
-        self._m_process_scan_time.observe(us(t_start))
-        self._m_process_time.observe(us(t_start))
+        self._m_process_scan_time.observe(total.us())
         self._m_num_scans.observe(scan.num_scans)
         self._m_process_frame.observe(self.process_count)
         self._m_memory_usage.observe(physical_memory_usage())

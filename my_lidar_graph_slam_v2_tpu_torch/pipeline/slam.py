@@ -16,7 +16,6 @@ hanging it.
 from __future__ import annotations
 
 import threading
-import time
 from typing import Optional
 
 import numpy as np
@@ -64,7 +63,14 @@ class LidarGraphSlam:
 
     # ---- frontend entry ----------------------------------------------
     def process_scan(self, scan: ScanData, odom_pose: np.ndarray) -> bool:
-        return self.frontend.process_scan(self, scan, odom_pose)
+        """Feed one scan; True when it became a keyframe.  With tracing on
+        a keyframe closes the trace record (``metrics/registry.py``)."""
+        mm = MetricManager.instance()
+        with mm.span("process_scan"):
+            keyframe = self.frontend.process_scan(self, scan, odom_pose)
+        if keyframe:
+            mm.close_record()
+        return keyframe
 
     @property
     def process_count(self) -> int:
@@ -134,24 +140,22 @@ class LidarGraphSlam:
         ``Frontend.BackendLagWaitTime`` (us)."""
         if self.inline_backend or self.backend is None:
             return
+        mm = MetricManager.instance()
+        name = "Frontend.BackendLagWaitTime"
         if self.max_backend_lag > 0:
-            t0 = time.perf_counter()
-            waited = False
             with self._lag_cond:
-                while (
-                    len(self.pose_graph.scan_nodes) - self._backend_done_nodes
-                    > self.max_backend_lag
-                    and not self._backend_stop.is_set()
-                    and self._worker_alive()
-                ):
-                    waited = True
-                    self._lag_cond.wait(timeout=0.05)
-            if waited:
-                self.lag_wait_count += 1
-                MetricManager.instance().value_sequence(
-                    "Frontend.BackendLagWaitTime"
-                ).observe(int((time.perf_counter() - t0) * 1e6))
+                if self._lagging():
+                    self.lag_wait_count += 1
+                    with mm.span(name, mm.value_sequence(name)):
+                        while self._lagging():
+                            self._lag_cond.wait(timeout=0.05)
         self._raise_backend_error()
+
+    def _lagging(self) -> bool:
+        return (len(self.pose_graph.scan_nodes) - self._backend_done_nodes
+                > self.max_backend_lag
+                and not self._backend_stop.is_set()
+                and self._worker_alive())
 
     def _raise_backend_error(self):
         if self.backend_error is not None:
@@ -172,15 +176,14 @@ class LidarGraphSlam:
         ``Frontend.OptimizationWaitTime`` (us)."""
         if self.inline_backend or self.backend is None:
             return
-        t0 = time.perf_counter()
-        with self._opt_cond:
-            if self._opt_running:
-                self.opt_wait_count += 1
-            while self._opt_running:
-                self._opt_cond.wait()
-        MetricManager.instance().value_sequence(
-            "Frontend.OptimizationWaitTime"
-        ).observe(int((time.perf_counter() - t0) * 1e6))
+        mm = MetricManager.instance()
+        name = "Frontend.OptimizationWaitTime"
+        with mm.span(name, mm.value_sequence(name)):
+            with self._opt_cond:
+                if self._opt_running:
+                    self.opt_wait_count += 1
+                while self._opt_running:
+                    self._opt_cond.wait()
 
     def start_backend(self):
         if self.backend is None or self.inline_backend:
@@ -206,7 +209,8 @@ class LidarGraphSlam:
                 with self._lag_cond:
                     self._lag_cond.notify_all()
 
-        self._backend_thread = threading.Thread(target=worker, daemon=True)
+        self._backend_thread = threading.Thread(target=worker, daemon=True,
+                                                name="slam-backend")
         self._backend_thread.start()
 
     def stop_backend(self):

@@ -74,6 +74,7 @@ from my_lidar_graph_slam_v2_tpu_torch.metrics.registry import MetricManager
 from my_lidar_graph_slam_v2_tpu_torch.ops import csm_cuda, hit_images_cuda
 from my_lidar_graph_slam_v2_tpu_torch.pipeline import factory
 from my_lidar_graph_slam_v2_tpu_torch.pipeline.backend import LidarGraphSlamBackend
+from torch_counters import FetchesOf
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LOSS_RTOL = 2e-6
@@ -288,12 +289,13 @@ def bb_runs():
         ),
         optimizer.PoseGraphOptimizer(device="cpu"),
     )
+    fetched = FetchesOf(matcher)
     launches = (csm_cuda.LAUNCHES, hit_images_cuda.LAUNCHES)
     slam = factory.create_default_slam(device="cpu", backend=backend, **FRONT)
     p = _drive(slam, _sequence(port_synthetic))
     # CPU tensors take the plain versions: no kernel launched
     assert (csm_cuda.LAUNCHES, hit_images_cuda.LAUNCHES) == launches
-    return j, p, slam, matcher, jbackend, backend
+    return j, p, slam, matcher, jbackend, backend, fetched
 
 
 def test_bb_loop_run_matches_reference(bb_runs):
@@ -307,6 +309,7 @@ def test_bb_loop_run_matches_reference(bb_runs):
 
 def test_bb_loop_run_closes_the_loop(bb_runs):
     (p_est, p_gt, _), slam, matcher = bb_runs[1], bb_runs[2], bb_runs[3]
+    fetched = bb_runs[6]
     seq = _sequence(port_synthetic)
     odom = np.stack([s.odom_pose for s in seq.scans])
     ate = port_synthetic.ate_rmse(p_est, p_gt)
@@ -315,7 +318,7 @@ def test_bb_loop_run_closes_the_loop(bb_runs):
     # every match swept at least one block and fetched once per block,
     # once for the bounds and once for the result
     assert matcher.matches >= 1
-    assert matcher.host_fetches == matcher.blocks_swept + 2 * matcher.matches
+    assert fetched.n == matcher.blocks_swept + 2 * matcher.matches
     # each matched map's pyramid sits in its cache entry, built once
     entries = slam.backend.loop_detector.map_cache._entries.values()
     assert len(entries) >= 1
@@ -349,13 +352,14 @@ def test_default_backend_serial_run():
         factory.create_default_backend(device="cpu", **kw).loop_detector,
         LoopDetectorShardedCorrelative)
     backend = factory.create_default_backend(device="cpu", sharded=False, **kw)
+    fetched = FetchesOf(backend.loop_detector.scan_matcher)
     slam = factory.create_default_slam(device="cpu", backend=backend, **FRONT)
     est, gt, loops = _drive(slam, seq)
     assert len(loops) >= 1
     odom = np.stack([s.odom_pose for s in seq.scans])
     ate = port_synthetic.ate_rmse(est, gt)
     assert ate < 0.6 * port_synthetic.ate_rmse(odom, seq.ground_truth)
-    assert backend.loop_detector.scan_matcher.host_fetches >= 1
+    assert fetched.n >= 1
 
 
 # ---- the worker thread ----------------------------------------------------

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from my_lidar_graph_slam_v2_tpu_torch.ops import csm, csm_cuda, hit_images_cuda
+from torch_counters import dense_reruns, host_fetches
 from torch_sweep_cases import (
     TILE_CASES,
     f32_window,
@@ -668,9 +669,10 @@ def _mesh_detector_match(mesh, device):
                           n_theta_max=64, crop_rows=256, crop_cols=256),
         ScanMatcherLinearSolver(LinearSolverConfig(), device), mesh)
     before = csm_cuda.LAUNCHES
+    f0, r0 = host_fetches(), dense_reruns()
     out = det.match(_mesh_detector_queries(device))
     return ([(p, s, f) for _, _, p, s, f in out], csm_cuda.LAUNCHES - before,
-            det)
+            host_fetches() - f0, dense_reruns() - r0)
 
 
 def test_mesh_detector_on_one_device_equals_the_batched_detector(
@@ -679,12 +681,13 @@ def test_mesh_detector_on_one_device_equals_the_batched_detector(
     make the same two sweep launches (plus two per dense re-run) and the
     CPU's results bit for bit; a two-device mesh of the same card splits
     the step into two chunks, two launches each, with the same results."""
-    want, _, _ = _mesh_detector_match("cpu", "cpu")
+    want = _mesh_detector_match("cpu", "cpu")[0]
     for mesh, chunks in ((cuda_device, 1), ((cuda_device,), 1),
                          ((cuda_device, cuda_device), 2)):
-        got, launches, det = _mesh_detector_match(mesh, cuda_device)
-        assert launches == 2 * chunks + 2 * det.dense_reruns
-        assert det.host_fetches == 1 + det.dense_reruns
+        got, launches, fetched, reruns = _mesh_detector_match(mesh,
+                                                              cuda_device)
+        assert launches == 2 * chunks + 2 * reruns
+        assert fetched == 1 + reruns
         for g, w in zip(got, want, strict=True):
             np.testing.assert_array_equal(g[0], w[0])
             assert g[1:] == w[1:]

@@ -74,6 +74,7 @@ from my_lidar_graph_slam_v2_tpu_torch.sensor.data import ScanData
 
 from tests.test_matchers import build_map, synth_world_scan
 from tests.test_torch_backend import E2E_TOL_THETA, E2E_TOL_XY, FRONT, _drive, _sequence
+from torch_counters import FetchesOf, dense_reruns, host_fetches
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 POSE_TOL = 1e-4
@@ -224,10 +225,13 @@ def test_detector_equals_serial_detector(maps):
     serial = LoopDetectorCorrelative(
         dcfg, ScanMatcherCorrelative(cfg, "cpu", "TorchBatched.Serial"), final)
     launches = csm_cuda.LAUNCHES
+    f0, r0 = host_fetches(), dense_reruns()
     got = batched.detect(_port_queries(maps))
+    # the batch's fetch and the re-run's, then one per final match
+    fetched, reruns = host_fetches() - f0 - len(got), dense_reruns() - r0
     want = serial.detect(_port_queries(maps))
     assert csm_cuda.LAUNCHES == launches  # CPU tensors: the plain sweep
-    assert batched.dense_reruns == 1 and batched.host_fetches == 2
+    assert reruns == 1 and fetched == 2
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):
         assert g.keys() == w.keys()
@@ -248,8 +252,9 @@ def test_detector_matches_jax(maps):
         reference.correlative_config(dataclasses.asdict(jmcfg)),
         ScanMatcherLinearSolver(LinearSolverConfig(), "cpu"), "cpu")
     j = jdet.detect(_jax_queries(maps))
+    r0 = dense_reruns()
     p = pdet.detect(_port_queries(maps))
-    assert pdet.dense_reruns == 1
+    assert dense_reruns() - r0 == 1
     assert len(p) == len(j) == 3
     for a, b in zip(p, j):
         assert (a["local_map_id"], a["scan_node_id"]) == \
@@ -257,8 +262,9 @@ def test_detector_matches_jax(maps):
         assert a["score"] == b["score"]
         np.testing.assert_allclose(a["relative_pose"], b["relative_pose"],
                                    atol=POSE_TOL, rtol=0)
-    stack = pdet._m_stack_bytes
-    assert stack.values[-1] == 2 * 320 * 320 * 4  # two distinct maps
+    stack = pdet._launch(pdet.device, _port_queries(maps))["maps"]
+    staged = sum(m.numel() * m.element_size() for m in stack)
+    assert staged == 2 * 320 * 320 * 4  # two distinct maps
 
 
 def test_default_backend_builds_the_batched_detector():
@@ -280,6 +286,7 @@ def test_default_backend_matches_jax():
         jfactory.create_default_slam(backend=jbackend, **FRONT),
         _sequence(jsyn, step=0.2))
     backend = factory.create_default_backend(device="cpu", **kw)
+    fetched = FetchesOf(backend.loop_detector, "match")
     slam = factory.create_default_slam(device="cpu", backend=backend, **FRONT)
     p_est, p_gt, p_loops = _drive(slam, _sequence(psyn, step=0.2))
     assert len(p_est) == len(j_est)
@@ -287,4 +294,4 @@ def test_default_backend_matches_jax():
     d = np.abs(p_est - j_est)
     assert d[:, :2].max() <= E2E_TOL_XY, d[:, :2].max()
     assert d[:, 2].max() <= E2E_TOL_THETA, d[:, 2].max()
-    assert backend.loop_detector.host_fetches >= 1
+    assert fetched.n >= 1

@@ -29,6 +29,7 @@ from my_lidar_graph_slam_v2_tpu_torch.matching.hill_climbing import (
     ScanMatcherHillClimbing,
 )
 from my_lidar_graph_slam_v2_tpu_torch.ops import csm_cuda
+from torch_counters import FetchesOf
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from tests.test_torch_backend import E2E_TOL_THETA, E2E_TOL_XY
@@ -77,9 +78,11 @@ def runs():
                _sequence(jsyn))
     launches = csm_cuda.LAUNCHES
     slam = psettings.create_slam_from_settings(SETTINGS, device="cpu", **SIZES)
+    fetched = (FetchesOf(slam.frontend.scan_matcher),
+               FetchesOf(slam.backend.loop_detector.scan_matcher))
     p = _drive(slam, _sequence(psyn))
     assert csm_cuda.LAUNCHES == launches  # CPU tensors: plain versions
-    return j, p, slam
+    return j, p, slam, fetched
 
 
 def test_matcher_slice_matches_reference(runs):
@@ -92,14 +95,14 @@ def test_matcher_slice_matches_reference(runs):
 
 
 def test_matcher_slice_runs_the_new_matchers(runs):
-    (p_est, p_gt, _), slam = runs[1], runs[2]
+    (p_est, p_gt, _), slam, (front_fetched, loop_fetched) = runs[1:]
     front = slam.frontend.scan_matcher
     loop = slam.backend.loop_detector.scan_matcher
     assert isinstance(front, ScanMatcherHillClimbing)
     assert isinstance(loop, ScanMatcherGridSearch)
     assert front.matches == len(p_est) - 1
-    assert front.host_fetches == front.iterations + 2 * front.matches
-    assert loop.matches >= 1 and loop.host_fetches == loop.matches
+    assert front_fetched.n == front.iterations + 2 * front.matches
+    assert loop.matches >= 1 and loop_fetched.n == loop.matches
     seq = _sequence(psyn)
     odom = np.stack([s.odom_pose for s in seq.scans])
     assert psyn.ate_rmse(p_est, p_gt) < 0.5 * psyn.ate_rmse(

@@ -49,6 +49,7 @@ from my_lidar_graph_slam_v2_tpu_torch.matching.types import (
 )
 from my_lidar_graph_slam_v2_tpu_torch.ops import csm, csm_cuda, greedy_endpoint
 from my_lidar_graph_slam_v2_tpu_torch.utils import oracle
+from torch_counters import FetchesOf
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from tests.test_matchers import RES, build_map, make_scan_arrays
@@ -268,9 +269,10 @@ def _run_grid_search(scene, kw, cost, init, thresholds=(0.3, 0.5)):
         ScanMatchingQuery(_jmap(scene), scene["scan"], init), *thresholds)
     pm = pgs.ScanMatcherGridSearch(
         reference.grid_search_config(dataclasses.asdict(jcfg)), "cpu")
+    fetched = FetchesOf(pm)
     ps = pm.optimize_pose(
         PScanMatchingQuery(scene["pmap"], scene["pscan"], init), *thresholds)
-    assert pm.matches == pm.host_fetches == 1
+    assert pm.matches == fetched.n == 1
     return jcfg, js, ps
 
 
@@ -406,6 +408,7 @@ def test_hill_climbing_matches_reference(scene, cost):
     pm = phc.ScanMatcherHillClimbing(
         reference.hill_climbing_config(dataclasses.asdict(jcfg)), "cpu")
     jmap = _jmap(scene)
+    fetched = FetchesOf(pm)
     rng = np.random.default_rng(12)
     misses = 0
     for _ in range(16):
@@ -421,5 +424,5 @@ def test_hill_climbing_matches_reference(scene, cost):
         np.testing.assert_allclose(ps.covariance, js.covariance, rtol=0,
                                    atol=COV_RTOL * np.abs(js.covariance).max())
     assert misses <= HILL_MISSES, misses
-    assert pm.host_fetches == pm.iterations + 2 * pm.matches
+    assert fetched.n == pm.iterations + 2 * pm.matches
     assert pm.matches == 16 and pm.iterations >= 16

@@ -67,12 +67,17 @@ from my_lidar_graph_slam_v2_tpu_torch.matching.linear_solver import (
     LinearSolverConfig,
     ScanMatcherLinearSolver,
 )
+from my_lidar_graph_slam_v2_tpu_torch.metrics.registry import MetricManager
 from my_lidar_graph_slam_v2_tpu_torch.pipeline.backend import LidarGraphSlamBackend
 from my_lidar_graph_slam_v2_tpu_torch.pipeline.factory import (
     create_default_backend,
     create_default_slam,
     create_scan_matcher,
 )
+
+def fetches():
+    return MetricManager.instance().counter("Device.HostFetches").value
+
 
 world = synthetic.World.office(seed=1, size=8.0)
 traj = synthetic.loop_trajectory(size=8.0, laps=0.2, step=0.08)
@@ -91,7 +96,7 @@ slam = create_default_slam(device="cpu", map_rows=256, map_cols=256,
 for scan in seq.scans:
     slam.process_scan(scan, scan.odom_pose)
 slam.stop_backend()
-assert slam.frontend.scan_matcher.host_fetches >= 1, "no match ran"
+assert fetches() >= 1, "no match ran"
 assert len(slam.builder.local_maps) >= 2
 node = slam.pose_graph.scan_nodes[-1]
 q = dict(query_node=node, ref_node=node,
@@ -105,8 +110,10 @@ assert stats["iterations"] >= 1
 create_default_backend(device="cpu", sharded=False)
 batched = create_default_backend(device="cpu", beam_capacity=128,
                                  n_theta_max=16, crop=96).loop_detector
-batched.detect([q])
-assert batched.host_fetches == 1, "the batched detector did not run"
+f0 = fetches()
+found = batched.detect([q])
+# one fetch for the batch, one per found candidate's final match
+assert fetches() - f0 == 1 + len(found), "the batched detector did not run"
 
 import socket
 import torch.distributed as tdist
@@ -118,8 +125,9 @@ from my_lidar_graph_slam_v2_tpu_torch.pipeline.factory import (
 small = dict(beam_capacity=128, n_theta_max=16, crop=96)
 dist_backend = create_distributed_backend(mesh.make_mesh(["cpu", "cpu"]),
                                           **small)
-dist_backend.loop_detector.detect([q])
-assert dist_backend.loop_detector.host_fetches == 1
+f0 = fetches()
+found = dist_backend.loop_detector.detect([q])
+assert fetches() - f0 == 1 + len(found)
 assert dist_backend.optimizer.optimize(*snap[2:])[2]["iterations"] >= 1
 sock = socket.socket()
 sock.bind(("localhost", 0))
@@ -145,9 +153,12 @@ gs = create_scan_matcher("GridSearch", device="cpu", range_x=0.3,
 hc = create_scan_matcher("HillClimbing", device="cpu")
 raster = detector.map_cache.raster(slam.builder.local_map_at(0))
 arrays = scan_to_arrays(node.scan_data, 128, "cpu")
+gs_fetches = []
 for m in (gs, hc):
+    f0 = fetches()
     m.optimize_pose(ScanMatchingQuery(raster, arrays, np.zeros(3)))
-assert gs.host_fetches == 1 and hc.matches == 1
+    gs_fetches += [fetches() - f0] if m is gs else []
+assert gs_fetches == [1] and hc.matches == 1
 
 import torch
 from my_lidar_graph_slam_v2_tpu_torch.matching.correlative import (
@@ -162,9 +173,11 @@ for backend in ("matmul", "gather"):
     ScanMatcherCorrelative(CorrelativeConfig(
         n_theta_max=16, crop_rows=96, crop_cols=96, precision="highest",
         sweep_backend=backend), "cpu").optimize_pose(f32_query)
+f0 = fetches()
 gs.optimize_pose(f32_query)
+gs_fetches.append(fetches() - f0)
 bb.optimize_pose(f32_query)
-assert gs.host_fetches == 2 and bb.matches == 2
+assert sum(gs_fetches) == 2 and bb.matches == 2
 delta = rasterize.scan_delta((64, 64), arrays.ranges.new_zeros(2),
                              torch.ones(3, 2), torch.ones(3, dtype=torch.bool),
                              0.05, torch.full((2,), -1.6), 0.5, -0.2,
@@ -222,7 +235,8 @@ def test_port_sources_do_not_import_jax_or_the_jax_package():
     read from the source (an import inside a function counts too)."""
     files = sorted((ROOT / (JAX_PACKAGE + "_torch")).rglob("*.py"))
     files += [ROOT / n for n in ("chip_smoke.py", "profile_slice.py",
-                                 "sweep_ab.py", "backend_ab.py")]
+                                 "sweep_ab.py", "backend_ab.py",
+                                 "span_audit.py")]
     assert len(files) > 40
     found = []
     for f in files:

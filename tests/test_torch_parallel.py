@@ -86,6 +86,7 @@ from my_lidar_graph_slam_v2_tpu_torch.parallel.loop_sharded import (
 )
 from my_lidar_graph_slam_v2_tpu_torch.parallel.mesh import make_mesh
 from my_lidar_graph_slam_v2_tpu_torch.pipeline import checkpoint, factory
+from torch_counters import dense_reruns, host_fetches
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from tests.test_optimizer import build_loop_graph
@@ -178,9 +179,11 @@ def test_mesh_detector_matches_jax(maps, n_dev):
         ScanMatcherLinearSolver(LinearSolverConfig(), "cpu"), mesh)
     launches = csm_cuda.LAUNCHES
     j = jdet.detect(_jax_queries(maps))
+    f0, r0 = host_fetches(), dense_reruns()
     p = pdet.detect(_port_queries(maps))
     assert csm_cuda.LAUNCHES == launches  # CPU tensors: the plain sweep
-    assert pdet.host_fetches == 2 and pdet.dense_reruns == 1
+    # the batch's fetch and the re-run's, then one per final match
+    assert host_fetches() - f0 == 2 + len(p) and dense_reruns() - r0 == 1
     assert len(p) == len(j) == 3
     for a, b in zip(p, j):
         assert (a["local_map_id"], a["scan_node_id"]) == \
@@ -200,8 +203,9 @@ def test_mesh_detector_sizes_agree_bitwise(maps):
             reference.correlative_config(MATCHER),
             ScanMatcherLinearSolver(LinearSolverConfig(), "cpu"),
             ("cpu",) * n)
+        f0 = host_fetches()
         out.append(det.detect(_port_queries(maps)))
-        assert det.host_fetches == 2
+        assert host_fetches() - f0 == 2 + len(out[-1])
     for got in out[1:]:
         assert [r.keys() for r in got] == [r.keys() for r in out[0]]
         for g, w in zip(got, out[0]):

@@ -1,0 +1,34 @@
+"""The port's registry counters that stand for what its objects once
+counted themselves: read one before a call and after it, and compare the
+rise."""
+from my_lidar_graph_slam_v2_tpu_torch.metrics.registry import MetricManager
+
+
+def host_fetches() -> float:
+    """``Device.HostFetches``: the device-to-host transfers so far."""
+    return MetricManager.instance().counter("Device.HostFetches").value
+
+
+def dense_reruns() -> float:
+    """``LoopDetector.DenseReruns``: the batched detector's candidates
+    re-run densely so far."""
+    return MetricManager.instance().counter("LoopDetector.DenseReruns").value
+
+
+class FetchesOf:
+    """The host fetches made inside ``obj``'s ``method`` from now on, as
+    the object once counted its own: ``n`` sums the rise of
+    ``Device.HostFetches`` over each call."""
+
+    def __init__(self, obj, method: str = "optimize_pose"):
+        self.n = 0
+        call = getattr(obj, method)
+
+        def counted(*args, **kw):
+            f0 = host_fetches()
+            try:
+                return call(*args, **kw)
+            finally:
+                self.n += host_fetches() - f0
+
+        setattr(obj, method, counted)
