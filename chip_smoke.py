@@ -7,8 +7,9 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
 
 1. Device: requires CUDA (there is no CPU fallback) and prints the card's
    name and power limit as ``nvidia-smi`` reports them.
-2. Build: compiles ``csrc/csm_sweep.cu``, ``csrc/csm_sweep_f32.cu`` and
-   ``csrc/hit_images.cu`` with nvcc for sm_90a from the checkout's
+2. Build: compiles ``csrc/csm_sweep.cu``, ``csrc/csm_sweep_f32.cu``,
+   ``csrc/hit_images.cu`` and ``csrc/gauss_newton.cu`` with nvcc for
+   sm_90a from the checkout's
    sources, all at once, and prints the build times and ptxas reports,
    and each kernel's count of f32-to-f64 converts (``F2F.F64.F32`` in
    ``cuobjdump -sass``): the f32 sweep kernels must have none.
@@ -33,12 +34,21 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    ``torch.equal`` to the plain pack at each shape, the sweep equal to
    the plain version on a window of cells below 2^-18 at each shape, and
    the sweep at 2,048 beams all reading 1.0 (the fixed point's edge; no
-   time).
+   time).  The Gauss-Newton kernel (``csrc/gauss_newton.cu``) likewise,
+   against its plain version on the CPU (``refine_plain``, NaN where NaN)
+   at the frontend's shape (a 1024^2 latest map of ten course scans, 512
+   beams of which 181 valid) and the loop final matcher's (a second-lap
+   scan against the first lap's map), u8 and f32: device time from
+   CUDA-graph replays beside its bound (each evaluation's bytes and f64
+   operations, for the evaluations these inputs need) and the plain
+   version's time on the card (no library call computes it).
 4. The frontend slice: ``create_default_slam(device="cuda")`` at the
    factory defaults drives the synthetic office sequence for >= 40
    keyframes; the same sequence runs through the port on the CPU (plain
    sweep).  Same keyframe count, poses within one grid cell, ATE below raw
-   odometry, and at least two sweep launches per matched keyframe.
+   odometry, and at least two sweep launches per matched keyframe.  Every
+   refinement of the card's run is one Gauss-Newton launch
+   (:class:`RefineCount`), at least one per matched keyframe.
 5. The branch-and-bound loop slice: the same factory with the
    branch-and-bound loop backend (``LoopDetectorBranchBound`` at the
    ``BranchBoundConfig`` defaults, Schur LM) on the world of
@@ -59,7 +69,8 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
    (``parallel/loop_sharded.py``), on the card (after a warm-up run) and
    on the CPU: the same keyframes and loop edges, bitwise-equal poses, at
    least one loop edge, ATE below odometry's, and exactly two sweep
-   launches per backend step with candidates plus two per dense re-run;
+   launches per backend step with candidates plus two per dense re-run,
+   and one Gauss-Newton launch per refinement (:class:`RefineCount`);
    prints the batch sizes and the median ms per ``detect`` and per
    backend step beside phase 6's.
 8. The launcher: config #3's world written as a Carmen log, then
@@ -162,6 +173,7 @@ import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -172,6 +184,7 @@ import torch
 from my_lidar_graph_slam_v2_tpu_torch.scripts.bench_e2e import build_sequence
 from my_lidar_graph_slam_v2_tpu_torch.scripts.common import (
     F32_OPS_PER_S,
+    F64_OPS_PER_S,
     bound as _bound,
     nvidia_smi as _nvidia_smi,
     sweep_bound,
@@ -418,6 +431,118 @@ def check_kernel(device):
     return out
 
 
+# Phase 3, the Gauss-Newton kernel: the course cases of
+# tests/torch_gn_cases.py at the system's map size.
+GN_SHAPES = ("frontend", "loop")
+GN_MAP_SIZE = 1024
+# Bytes one evaluation reads per beam: range and angle (f32), mask (bool)
+# and four corners of the raster and of its observed mask; f64 operations
+# per beam: the 10 products and 10 adds of (W K)^T K (2 more for the
+# initial cost's sum of squares in the first evaluation).
+GN_BEAM_BYTES = {torch.uint8: 4 + 4 + 1 + 4 * (1 + 1),
+                 torch.float32: 4 + 4 + 1 + 4 * (4 + 1)}
+GN_BEAM_F64_OPS = 20
+
+
+def gn_bound(prob, beams, iterations):
+    """Bound of one refinement that ran ``iterations`` steps: its
+    ``1 + iterations`` evaluations' bytes and f64 operations, the pose,
+    offset and output once."""
+    evals = 1 + iterations
+    nbytes = evals * beams * GN_BEAM_BYTES[prob.dtype] + 12 + 8 + 64
+    ops = evals * beams * GN_BEAM_F64_OPS + 2 * beams
+    return _bound(nbytes, ops, F64_OPS_PER_S)
+
+
+def gn_cases():
+    """The course's refinement inputs (``tests/torch_gn_cases.py``)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_gn_cases
+
+    return torch_gn_cases
+
+
+def check_gn_kernel(device):
+    """Phase 3, the Gauss-Newton kernel against its plain version on the
+    CPU at the frontend's and the loop final matcher's shapes, u8 and
+    f32; device time, the plain version's time on the card, bound."""
+    from my_lidar_graph_slam_v2_tpu_torch.ops import (
+        gauss_newton,
+        gauss_newton_cuda,
+    )
+
+    cases = gn_cases()
+    out = []
+    for shape in GN_SHAPES:
+        for f32 in (False, True):
+            args = cases.case(shape, f32=f32, size=GN_MAP_SIZE)
+            on = [a.to(device) if torch.is_tensor(a) else a for a in args]
+            ref = gauss_newton.refine_plain(*args)
+            got = gauss_newton.refine(*on)
+            torch.cuda.synchronize()
+            try:
+                cases.assert_same_bits(got, ref)
+            except AssertionError as e:
+                raise AssertionError(
+                    f"gauss_newton kernel != plain at {shape} "
+                    f"({'f32' if f32 else 'u8'})") from e
+            kw = dict(max_iterations=10, convergence_threshold=1e-4,
+                      initial_lambda=1e-4, covariance_scale=1e4)
+            ms = _graph_ms(lambda: gauss_newton_cuda.refine(*on, **kw))
+            iterations = int(ref[2])
+            bound_ms, bound_by = gn_bound(args[0], args[2].shape[0],
+                                          iterations)
+            row = dict(
+                shape=shape, raster="f32" if f32 else "u8",
+                map=list(args[0].shape), B=int(args[2].shape[0]),
+                valid=int(args[4].sum()), iterations=iterations, ms=ms,
+                plain_ms=_events_ms(
+                    lambda: gauss_newton.refine_plain(*on), calls=5),
+                bound_ms=bound_ms, bound_by=bound_by,
+                pct_of_bound=100 * bound_ms / ms, library_ms=None,
+            )
+            print(f"gauss_newton {json.dumps(row)}", flush=True)
+            out.append(row)
+    return out
+
+
+class RefineCount:
+    """Counts the refinements (``gauss_newton.refine`` on a CUDA tensor)
+    inside the block; on leaving it, requires each to have been one
+    kernel launch and one ``GaussNewton.KernelRefines``."""
+
+    def __enter__(self):
+        from my_lidar_graph_slam_v2_tpu_torch.ops import (
+            gauss_newton,
+            gauss_newton_cuda,
+        )
+
+        self._gn, self._cuda = gauss_newton, gauss_newton_cuda
+        self._refine = gauss_newton.refine
+        self.calls = 0
+
+        def counted(prob, *args, **kw):
+            self.calls += prob.device.type == "cuda"
+            return self._refine(prob, *args, **kw)
+
+        gauss_newton.refine = counted
+        self._l0 = gauss_newton_cuda.LAUNCHES
+        self._c0 = _counter("GaussNewton.KernelRefines")
+        return self
+
+    def __exit__(self, *exc):
+        self._gn.refine = self._refine
+        self.launches = self._cuda.LAUNCHES - self._l0
+        self.kernel_refines = _counter("GaussNewton.KernelRefines") - self._c0
+        if exc[0] is None and not (
+                self.calls == self.launches == self.kernel_refines):
+            raise AssertionError(
+                f"{self.calls} refinements on the card, {self.launches} "
+                f"Gauss-Newton launches, {self.kernel_refines} "
+                "GaussNewton.KernelRefines")
+        return False
+
+
 # Phase 3, the f32 form: the sweeps of every f32-window path (the
 # correlative matchers' coarse and fine sweeps, serial and batched, the grid
 # search's) and the frontend's shapes, as the u8 rows.
@@ -646,7 +771,8 @@ def check_slice(device):
     warm = run_slice(device, build_sequence(4, seed=1))
     torch.cuda.reset_peak_memory_stats(device)
     csm_cuda.LAUNCHES = 0
-    gpu = run_slice(device, seq)
+    with RefineCount() as refines:
+        gpu = run_slice(device, seq)
     launches = csm_cuda.LAUNCHES
     peak = torch.cuda.max_memory_allocated(device)
     sites = _sync_sites(lambda: run_slice(device, seq))
@@ -670,6 +796,7 @@ def check_slice(device):
         keyframe_ms_p90=float(np.percentile(steady, 90)),
         cpu_wall_s=cpu["wall"], cpu_ms_per_keyframe=1e3 * cpu["wall"] / n_kf,
         launches=launches, launches_per_matched_keyframe=launches / matched,
+        gauss_newton_launches=refines.launches,
         host_fetches_per_keyframe=gpu["fetches"] / matched,
         sync_warnings_per_keyframe=syncs / n_kf,
         sync_sites=dict(sorted(sites.items(), key=lambda kv: -kv[1])[:10]),
@@ -695,6 +822,9 @@ def check_slice(device):
         raise AssertionError(
             f"{launches} kernel launches for {matched} matched keyframes"
         )
+    if refines.launches < matched:
+        raise AssertionError(f"{refines.launches} Gauss-Newton launches for "
+                             f"{matched} matched keyframes")
     return stats, launches
 
 
@@ -1179,7 +1309,9 @@ def check_batched_loop_slice(device, serial):
     run_loop_slice(device, seq, stages=_logged_detects([]), **kw)
     calls = []
     csm_cuda.LAUNCHES = hit_images_cuda.LAUNCHES = 0
-    gpu = run_loop_slice(device, seq, stages=_logged_detects(calls), **kw)
+    with RefineCount() as refines:
+        gpu = run_loop_slice(device, seq, stages=_logged_detects(calls),
+                             **kw)
     sweep_launches = csm_cuda.LAUNCHES
     hit_launches = hit_images_cuda.LAUNCHES
     cpu = run_loop_slice("cpu", seq, **kw)
@@ -1200,6 +1332,7 @@ def check_batched_loop_slice(device, serial):
         candidates=sum(c["n"] for c in batches),
         dense_reruns=sum(c["reruns"] for c in batches),
         csm_sweep_launches=sweep_launches, hit_image_launches=hit_launches,
+        gauss_newton_launches=refines.launches,
         detect_sweep_launches=sum(c["launches"] for c in batches),
         host_fetches=gpu["fetches"],
         detect_ms_median=statistics.median(c["ms"] for c in batches)
@@ -2690,7 +2823,8 @@ def main() -> int:
     print(f"device: {smi}", flush=True)
 
     t0 = time.perf_counter()
-    built = cuda_build.build("csm_sweep", "csm_sweep_f32", "hit_images")
+    built = cuda_build.build("csm_sweep", "csm_sweep_f32", "hit_images",
+                             "gauss_newton")
     print(f"build: all kernels in {time.perf_counter() - t0:.2f} s", flush=True)
     for name, info in built.items():
         print(f"build: {info['path'].name} in {info['seconds']:.2f} s "
@@ -2708,6 +2842,7 @@ def main() -> int:
     shapes = check_kernel(device)
     f32_shapes = check_f32_kernel(device)
     hit_shapes = check_hit_kernel(device)
+    gn_shapes = check_gn_kernel(device)
     frontend, frontend_launches = check_slice(device)
     loop = check_loop_slice(device)
     corr = check_correlative_loop_slice(device)
@@ -2829,6 +2964,18 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in hit_shapes),
             **_kernel_line(bb_shape),
             shapes=hit_shapes,
+        ),
+        dict(
+            name="gauss_newton",
+            route="cuda",
+            source="my_lidar_graph_slam_v2_tpu_torch/csrc/gauss_newton.cu",
+            replaces=None,
+            launches=batched["gauss_newton_launches"],
+            launches_by_path=dict(
+                frontend=frontend["gauss_newton_launches"],
+                batched_loop=batched["gauss_newton_launches"]),
+            **_kernel_line([r for r in gn_shapes if r["raster"] == "u8"]),
+            shapes=gn_shapes,
         ),
     ]}))
     print(smi)

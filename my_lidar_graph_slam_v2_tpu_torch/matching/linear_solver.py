@@ -2,7 +2,8 @@
 
 Port of ``my_lidar_graph_slam_v2_tpu/matching/linear_solver.py``
 (``scan_matcher_linear_solver.cpp``).  The refinement runs on the
-matcher's device; the result comes back in one host fetch.
+matcher's device (``ops/gauss_newton.py:refine``: one kernel launch on
+the card); the result comes back in one host fetch.
 """
 from __future__ import annotations
 
@@ -35,20 +36,13 @@ def refine_core(cfg, prob, observed, ranges, angles, mask, sensor_pose,
     """(pose, cost / n, cov, iters, initial cost / n) as device tensors."""
     with MetricManager.instance().span("match.refine"):
         n = torch.clamp(mask.sum().to(torch.float32), min=1.0)
-        cost0 = gauss_newton.cost(
-            prob, observed, ranges, angles, mask, sensor_pose,
-            cfg.resolution, offset_xy,
-        )
-        pose, cost, iters = gauss_newton.gn_refine(
+        pose, cost, iters, cov, cost0 = gauss_newton.refine(
             prob, observed, ranges, angles, mask, sensor_pose,
             cfg.resolution, offset_xy,
             max_iterations=cfg.num_iterations_max,
             convergence_threshold=cfg.convergence_threshold,
             initial_lambda=cfg.initial_lambda,
-        )
-        cov = gauss_newton.covariance(
-            prob, observed, ranges, angles, mask, pose, cfg.resolution,
-            offset_xy, cfg.covariance_scale,
+            covariance_scale=cfg.covariance_scale,
         )
     return pose, torch.div(cost, n), cov, iters, torch.div(cost0, n)
 

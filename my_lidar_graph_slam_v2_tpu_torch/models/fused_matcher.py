@@ -4,7 +4,8 @@ refinement as one device sequence with one result fetch.
 Port of ``my_lidar_graph_slam_v2_tpu/models/fused_matcher.py``
 (``lidar_graph_slam_frontend.cpp:210-237``).  The JAX package compiles
 the whole two-stage match into one jit; here it is one eager sequence of
-device ops (the two CSM sweeps are the CUDA kernel on the card) whose
+device ops (on the card the two CSM sweeps are the sweep kernel and the
+refinement with its covariance one launch of the Gauss-Newton kernel) whose
 results come back to the host in a single transfer per keyframe — two
 when a prune cannot certify the argmax and the dense sweep re-runs.
 """
@@ -47,16 +48,13 @@ def fused_body(ccfg: CorrelativeConfig, lcfg: LinearSolverConfig, prob,
         )
     with span("match.refine"):
         n = torch.clamp(mask.sum().to(torch.float32), min=1.0)
-        refined, cost, iters = gauss_newton.gn_refine(
+        refined, cost, iters, cov, _ = gauss_newton.refine(
             prob, observed, ranges, angles, mask, csm_pose, ccfg.resolution,
             offset_xy,
             max_iterations=lcfg.num_iterations_max,
             convergence_threshold=lcfg.convergence_threshold,
             initial_lambda=lcfg.initial_lambda,
-        )
-        cov = gauss_newton.covariance(
-            prob, observed, ranges, angles, mask, refined, ccfg.resolution,
-            offset_xy, lcfg.covariance_scale,
+            covariance_scale=lcfg.covariance_scale,
         )
     return (refined, cov, score, known, found, torch.div(cost, n), iters,
             n_proc, n_total, csm_pose, csm_ncost, exact)

@@ -14,6 +14,12 @@ a host sync to test the stop condition.
 The trig, the sums over beams and the 3x3 solves go through
 ``utils/devmath.py`` (f64, rounded once to f32), so a match gives the same
 bits on the CPU and on CUDA.
+
+:func:`refine` is the one entry of the matchers (the fused frontend match
+and the final linear-solver matcher): initial cost, refinement and
+covariance.  On the CPU it is :func:`refine_plain`; on CUDA it is one
+launch of the hand-written kernel (``ops/gauss_newton_cuda.py``,
+``csrc/gauss_newton.cu``), which gives the same bits.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 
 from ..utils import devmath
 from ..utils.transfer import f32
+from . import gauss_newton_cuda
 from .quant import dequant_prob
 
 
@@ -130,18 +137,11 @@ def covariance(prob, observed, ranges, angles, mask, sensor_pose, resolution,
     return devmath.inv(H) * scale
 
 
-def gn_refine(prob, observed, ranges, angles, mask, sensor_pose0, resolution,
-              offset_xy, max_iterations=10, convergence_threshold=1e-4,
-              initial_lambda=1e-4):
-    """Damped Gauss-Newton (Levenberg-Marquardt) refinement
-    (``ScanMatcherLinearSolver::OptimizePose``), rejecting steps that
-    increase the cost.  Returns (pose, cost, n_iterations) as device
-    tensors.
-
-    Runs ``max_iterations`` masked steps: once the stop test holds, the
-    state stops changing, exactly as the JAX ``while_loop`` exits.  A
-    singular system yields a non-finite step (``devmath.solve``), rejected
-    like any cost increase, instead of a host-side check."""
+def _gn_loop(prob, observed, ranges, angles, mask, sensor_pose0, resolution,
+             offset_xy, max_iterations, convergence_threshold,
+             initial_lambda):
+    """:func:`gn_refine`'s loop; returns (pose, cost, n_iterations, H),
+    H evaluated at the returned pose."""
 
     def eval_at(p):
         return hessian_and_residual(
@@ -178,4 +178,63 @@ def gn_refine(prob, observed, ranges, angles, mask, sensor_pose0, resolution,
         )
         it = torch.where(live, it_new, it)
         done = done | stop
+    return p, cur, it, H
+
+
+def gn_refine(prob, observed, ranges, angles, mask, sensor_pose0, resolution,
+              offset_xy, max_iterations=10, convergence_threshold=1e-4,
+              initial_lambda=1e-4):
+    """Damped Gauss-Newton (Levenberg-Marquardt) refinement
+    (``ScanMatcherLinearSolver::OptimizePose``), rejecting steps that
+    increase the cost.  Returns (pose, cost, n_iterations) as device
+    tensors.
+
+    Runs ``max_iterations`` masked steps: once the stop test holds, the
+    state stops changing, exactly as the JAX ``while_loop`` exits.  A
+    singular system yields a non-finite step (``devmath.solve``), rejected
+    like any cost increase, instead of a host-side check."""
+    p, cur, it, _ = _gn_loop(
+        prob, observed, ranges, angles, mask, sensor_pose0, resolution,
+        offset_xy, max_iterations, convergence_threshold, initial_lambda,
+    )
     return p, cur, it
+
+
+def refine_plain(prob, observed, ranges, angles, mask, sensor_pose0,
+                 resolution, offset_xy, max_iterations=10,
+                 convergence_threshold=1e-4, initial_lambda=1e-4,
+                 covariance_scale=1e4):
+    """:func:`refine`'s plain version, on any device: :func:`cost` at the
+    start, :func:`gn_refine`'s loop, and the covariance from the H the
+    loop kept (what ``covariance(pose)`` evaluates again)."""
+    cost0 = cost(prob, observed, ranges, angles, mask, sensor_pose0,
+                 resolution, offset_xy)
+    p, cur, it, H = _gn_loop(
+        prob, observed, ranges, angles, mask, sensor_pose0, resolution,
+        offset_xy, max_iterations, convergence_threshold, initial_lambda,
+    )
+    return p, cur, it, devmath.inv(H) * covariance_scale, cost0
+
+
+def refine(prob, observed, ranges, angles, mask, sensor_pose0, resolution,
+           offset_xy, max_iterations=10, convergence_threshold=1e-4,
+           initial_lambda=1e-4, covariance_scale=1e4):
+    """One match's refinement: ``(pose, cost, n_iterations, cov,
+    initial cost)`` as device tensors, the values of :func:`gn_refine`,
+    :func:`covariance` at the refined pose and :func:`cost` at
+    ``sensor_pose0``, for one raster ``[H, W]`` and one scan ``[B]``.
+
+    On the CPU :func:`refine_plain`.  On CUDA one launch of the kernel
+    (``ops/gauss_newton_cuda.py``), which gives the same bits, or an
+    error: there is no fallback to the plain version."""
+    kw = dict(max_iterations=max_iterations,
+              convergence_threshold=convergence_threshold,
+              initial_lambda=initial_lambda,
+              covariance_scale=covariance_scale)
+    if prob.device.type == "cpu":
+        return refine_plain(prob, observed, ranges, angles, mask,
+                            sensor_pose0, resolution, offset_xy, **kw)
+    return gauss_newton_cuda.refine(
+        *(a.contiguous() for a in (prob, observed, ranges, angles, mask,
+                                   sensor_pose0)),
+        resolution, offset_xy.contiguous(), **kw)

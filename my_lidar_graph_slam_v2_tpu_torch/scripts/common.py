@@ -21,6 +21,7 @@ REPO = Path(__file__).resolve().parents[2]
 
 HBM_BYTES_PER_S = 3.35e12
 INT32_ADDS_PER_S = 132 * 64 * 1.98e9
+F64_OPS_PER_S = 132 * 64 * 1.98e9
 F32_OPS_PER_S = 67e12
 
 

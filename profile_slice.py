@@ -55,7 +55,7 @@ def _fenced_layers():
         (rasterize, "fold_shifted_deltas", "2 fold (latest map)"),
         (quant, "quantize_prob", "2 quantize (match + compact)"),
         (fused_matcher, "correlative_core", "2 correlative core"),
-        (gauss_newton, "gn_refine", "2 gn_refine"),
+        (gauss_newton, "refine", "2 refine (GN and covariance)"),
         (gauss_newton, "covariance", "2 covariance (all)"),
         (correlative, "cost_at", "3 cost at winner"),
         (correlative, "covariance_at", "3 covariance at winner"),

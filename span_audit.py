@@ -20,7 +20,10 @@ program's span tracing on or off (the cost of tracing: compare the two).
 traced window's unfenced half: for each of ``frontend.match``,
 ``loop.detect`` and ``graph.optimize`` its ms and the share of it its
 step spans (``match.*``, ``graph.prepare``, ``graph.solve``, ``fetch``)
-cover, and each span name's ms per keyframe.
+cover, each span name's ms per keyframe, and ``refines``: the
+``match.refine`` spans of that half (under ``frontend.match`` and under
+``loop.detect``) beside the rise of ``GaussNewton.KernelRefines`` over
+it, equal when every refinement ran the CUDA kernel.
 
 ``ranges`` profiles a few device operations inside ``record_function``
 ranges, once with device activity only and once with host and device
@@ -138,8 +141,30 @@ def coverage(args) -> int:
     for s in spans:
         names[s[0]] += (s[3] - s[2]) / 1e6 / kf
     out["ms_per_keyframe"] = dict(names.most_common(40))
+    out["refines"] = refines(seen["td"], spans)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def refines(td, spans) -> dict:
+    """The unfenced half's ``match.refine`` spans and the rise of
+    ``GaussNewton.KernelRefines`` over the same records."""
+    from slam_bench import program_spans
+
+    records = _manager().trace_records()
+    U, F = td.unfenced["keyframes"], (td.counts or {}).get("keyframes", 0)
+    end = len(records) - F
+    counter = "GaussNewton.KernelRefines"
+
+    def value(i):
+        return records[i].counters.get(counter, 0.0) if i >= 0 else 0.0
+
+    return dict(
+        spans=program_spans.count(spans, "match.refine"),
+        frontend=program_spans.count(spans, "match.refine",
+                                     "frontend.match"),
+        loop=program_spans.count(spans, "match.refine", "loop.detect"),
+        kernel_refines=value(end - 1) - value(end - U - 1))
 
 
 def ranges() -> int:

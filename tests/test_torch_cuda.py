@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+import torch_gn_cases as gn_cases
 from my_lidar_graph_slam_v2_tpu_torch.ops import csm, csm_cuda, hit_images_cuda
-from torch_counters import dense_reruns, host_fetches
+from torch_counters import dense_reruns, host_fetches, kernel_refines
 from torch_sweep_cases import (
     TILE_CASES,
     f32_window,
@@ -709,3 +710,160 @@ def test_bench_csm_batch_equals_the_cpu(cuda_device):
     assert csm_cuda.LAUNCHES == before + 4  # a warm-up call and a timed one
     for g, c in zip(gpu, cpu):
         assert torch.equal(g.cpu(), c)
+
+
+def _on(device, args):
+    return [a.to(device) if torch.is_tensor(a) else a for a in args]
+
+
+def _gn_kernel_vs_plain(device, args, **kw):
+    """The kernel (``refine`` on the card) against the plain version on
+    the CPU; one launch and one ``GaussNewton.KernelRefines``."""
+    from my_lidar_graph_slam_v2_tpu_torch.ops import (
+        gauss_newton,
+        gauss_newton_cuda,
+    )
+
+    ref = gauss_newton.refine(*args, **kw)
+    launches, counted = gauss_newton_cuda.LAUNCHES, kernel_refines()
+    got = gauss_newton.refine(*_on(device, args), **kw)
+    torch.cuda.synchronize(device)
+    assert gauss_newton_cuda.LAUNCHES == launches + 1
+    assert kernel_refines() == counted + 1
+    gn_cases.assert_same_bits(got, ref)
+    return ref
+
+
+# (course case, options of torch_gn_cases.case): the frontend's and the
+# final matcher's inputs at 181 valid beams of 512, on u8 and f32 maps,
+# from random starts, with all 512 beams valid and with 2,048.
+GN_CASES = [
+    (name, opts) for name in ("frontend", "loop") for opts in (
+        {}, dict(f32=True), dict(start_seed=1), dict(start_seed=2),
+        dict(start_seed=3, f32=True), dict(beams=512), dict(beams=2048))
+]
+
+
+@pytest.mark.parametrize("name,opts", GN_CASES,
+                         ids=[f"{n}-{'-'.join(f'{k}{v}' for k, v in o.items())}"
+                              for n, o in GN_CASES])
+def test_gn_kernel_equals_plain(cuda_device, name, opts):
+    _gn_kernel_vs_plain(cuda_device, gn_cases.case(name, **opts))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(max_iterations=0),
+    dict(convergence_threshold=0.5),
+    dict(max_iterations=25, initial_lambda=10.0, covariance_scale=3.0),
+], ids=["no steps", "early stop", "long and damped"])
+def test_gn_kernel_equals_plain_at_other_settings(cuda_device, kw):
+    ref = _gn_kernel_vs_plain(cuda_device,
+                              gn_cases.case("loop", start_seed=4), **kw)
+    if "convergence_threshold" in kw:
+        assert ref[2] < 10
+
+
+def test_gn_kernel_with_every_beam_masked(cuda_device):
+    """No valid beam: H = 0, every step is zero and refused, the
+    covariance is the inverse of a zero matrix (NaN, and inf where LU's
+    solve divides 1 by 0)."""
+    args = list(gn_cases.case("frontend"))
+    args[4] = torch.zeros_like(args[4])
+    ref = _gn_kernel_vs_plain(cuda_device, args)
+    assert torch.equal(ref[0], args[5]) and ref[2] == 10
+    assert not torch.isfinite(ref[3]).any()
+
+
+def test_gn_kernel_where_every_step_is_refused(cuda_device):
+    """A negative lambda past H's largest eigenvalue turns every step
+    uphill: all ten are refused, lambda only grows more negative."""
+    from my_lidar_graph_slam_v2_tpu_torch.ops import gauss_newton
+
+    args = gn_cases.case("frontend", start_seed=5)
+    H, _, _ = gauss_newton.hessian_and_residual(*args)
+    lam = -2.0 * float(torch.diagonal(H).sum())
+    ref = _gn_kernel_vs_plain(cuda_device, args, initial_lambda=lam)
+    assert torch.equal(ref[0], args[5]) and ref[2] == 10
+
+
+def _column_map_scan():
+    """A raster that varies along columns only and 64 valid beams at
+    angle 0 from a heading of 0: every K row is [gx, 0, 0, 1 - value], so
+    H has two zero rows and, with lambda 0, the step is 0/0."""
+    rng = np.random.default_rng(6)
+    cols = np.arange(gn_cases.SIZE)
+    prob = np.broadcast_to(np.uint8((cols * 37) % 251 + 2),
+                           (gn_cases.SIZE, gn_cases.SIZE)).copy()
+    ranges = np.zeros(512, np.float32)
+    ranges[:64] = rng.uniform(1.0, 5.0, 64)
+    mask = np.zeros(512, bool)
+    mask[:64] = True
+    return (torch.as_tensor(prob), torch.ones(prob.shape, dtype=torch.bool),
+            torch.as_tensor(ranges), torch.zeros(512), torch.as_tensor(mask),
+            torch.tensor([0.3, -0.2, 0.0]), gn_cases.RES,
+            torch.as_tensor(gn_cases.offset_of(gn_cases.SIZE)))
+
+
+def test_gn_kernel_refuses_a_non_finite_step(cuda_device):
+    from my_lidar_graph_slam_v2_tpu_torch.ops import gauss_newton
+    from my_lidar_graph_slam_v2_tpu_torch.utils import devmath
+
+    args = _column_map_scan()
+    H, b, _ = gauss_newton.hessian_and_residual(*args)
+    assert not torch.isfinite(devmath.solve(H, b)).any()
+    ref = _gn_kernel_vs_plain(cuda_device, args, initial_lambda=0.0)
+    assert torch.equal(ref[0], args[5]) and ref[2] == 10
+
+
+def test_gn_kernel_raises_on_what_it_does_not_take(cuda_device):
+    from my_lidar_graph_slam_v2_tpu_torch.ops import (
+        gauss_newton,
+        gauss_newton_cuda,
+    )
+
+    args = gn_cases.case("frontend")
+    on = _on(cuda_device, args)
+    before = gauss_newton_cuda.LAUNCHES
+    for dt in (torch.int16, torch.float64):
+        with pytest.raises(ValueError, match="prob must be u8 or f32"):
+            gauss_newton.refine(on[0].to(dt), *on[1:])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        gauss_newton_cuda.refine(*args, max_iterations=10,
+                                 convergence_threshold=1e-4,
+                                 initial_lambda=1e-4, covariance_scale=1e4)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        gauss_newton.refine(*on[:2], args[2], *on[3:])
+    assert gauss_newton_cuda.LAUNCHES == before
+
+
+def test_gn_kernel_counts_one_launch_per_match(cuda_device):
+    """Both matchers' refinements run the kernel: one launch and one
+    ``GaussNewton.KernelRefines`` per match, and the card's results are
+    the CPU's."""
+    from my_lidar_graph_slam_v2_tpu_torch.matching import linear_solver
+    from my_lidar_graph_slam_v2_tpu_torch.matching.correlative import (
+        CorrelativeConfig,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.models import fused_matcher
+    from my_lidar_graph_slam_v2_tpu_torch.ops import gauss_newton_cuda
+
+    prob, obs, ranges, angles, mask, start, res, off = gn_cases.case("loop")
+    ccfg = CorrelativeConfig(resolution=res, n_theta_max=48, crop_rows=256,
+                             crop_cols=256)
+    lcfg = linear_solver.LinearSolverConfig(resolution=res)
+
+    def both(device):
+        a = _on(device, (prob, obs, ranges, angles, mask, start, off))
+        core = linear_solver.refine_core(lcfg, *a)
+        body = fused_matcher.fused_body(ccfg, lcfg, *a[:2], None, None,
+                                        *a[2:], 0.0, 0.0)
+        return core, body
+
+    cpu = both("cpu")
+    launches, counted = gauss_newton_cuda.LAUNCHES, kernel_refines()
+    gpu = both(cuda_device)
+    torch.cuda.synchronize(cuda_device)
+    assert gauss_newton_cuda.LAUNCHES == launches + 2
+    assert kernel_refines() == counted + 2
+    for g, c in zip(gpu, cpu):
+        gn_cases.assert_same_bits(g, c)

@@ -9,6 +9,12 @@ def host_fetches() -> float:
     return MetricManager.instance().counter("Device.HostFetches").value
 
 
+def kernel_refines() -> float:
+    """``GaussNewton.KernelRefines``: the refinements the CUDA kernel ran
+    so far."""
+    return MetricManager.instance().counter("GaussNewton.KernelRefines").value
+
+
 def dense_reruns() -> float:
     """``LoopDetector.DenseReruns``: the batched detector's candidates
     re-run densely so far."""
