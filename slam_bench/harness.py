@@ -312,14 +312,40 @@ class Run:
         return out
 
 
-def verdict(numbers: dict, limits: dict):
+# The count in the window's ``mix`` that is 0 where a number's layer did
+# nothing, for the numbers a traffic file may leave unjudged.
+IDLE_WHEN = dict(loop_moved="edges", detect_wrong="queries",
+                 lm_gap_m="lm_calls", lm_gap_rad="lm_calls")
+
+
+def verdict(numbers: dict, limits: dict, nothing_to_judge=()):
     """(correct, checks): every number at or under its limit.  A number
     the run found nothing to judge for (None) fails: every output a
-    limit names is due in every run of the cell."""
+    limit names is due in every run of the cell.  The one exception is a
+    course with no loop, whose traffic file lists under
+    ``nothing_to_judge`` the numbers of the layers it gives no work: such
+    a number may be None where the window's ``mix`` shows its layer did
+    nothing (:data:`IDLE_WHEN`), and its check says so under
+    ``unjudged``.  On such a course an accepted loop edge is false by
+    construction, so the window's edges are a check of their own
+    (``loop_edges``, limit 0)."""
+    unknown = set(nothing_to_judge) - set(IDLE_WHEN)
+    if unknown:
+        raise ValueError(f"no rule to leave {sorted(unknown)} unjudged")
+    mix = numbers.get("mix") or {}
     checks, ok = {}, True
     for name, limit in limits.items():
         v = numbers.get(name)
         checks[name] = dict(value=v, limit=limit)
-        if v is None or not v <= limit:
+        idle = IDLE_WHEN.get(name)
+        if v is None and name in nothing_to_judge and mix.get(idle) == 0:
+            checks[name]["unjudged"] = (f"a course with no loop, and the "
+                                        f"window's {idle} are 0")
+        elif v is None or not v <= limit:
+            ok = False
+    if nothing_to_judge:
+        edges = mix.get("edges")
+        checks["loop_edges"] = dict(value=edges, limit=0)
+        if edges is None or edges > 0:
             ok = False
     return ok, checks

@@ -134,12 +134,13 @@ def selection(rec, ref: dict, seed: int):
 
 def mix(rec) -> dict:
     """What the window's backend did: steps, steps that ran detection and
-    that accepted an edge, queries and accepted edges."""
+    that accepted an edge, queries, accepted edges and LM calls."""
     calls = [c for c in rec.detects if c["in_window"]]
     return dict(steps=sum(rec.steps), detect_steps=len(calls),
                 edge_steps=sum(1 for c in calls if c["edges"]),
                 queries=sum(len(c["queries"]) for c in calls),
-                edges=sum(len(c["edges"]) for c in calls))
+                edges=sum(len(c["edges"]) for c in calls),
+                lm_calls=sum(1 for c in rec.lm if c["in_window"]))
 
 
 def judge(rec, raw_scans, ref: dict, program_maps: dict, seed: int, device,
@@ -242,8 +243,9 @@ def judge(rec, raw_scans, ref: dict, program_maps: dict, seed: int, device,
         out["detect_wrong"] = wrong / judged_q
 
     # Each step that accepted an edge optimises once.
-    window_lm = sum(1 for c in rec.lm if c["in_window"])
-    out["lm_calls_missing"] = float(abs(mix(rec)["edge_steps"] - window_lm))
+    window = mix(rec)
+    out["lm_calls_missing"] = float(abs(window["edge_steps"]
+                                        - window["lm_calls"]))
 
     # Every LM call in order, lambda carried.
     lam_ref = lam_low = ref["lm"]["initial_lambda"]
@@ -272,6 +274,6 @@ def judge(rec, raw_scans, ref: dict, program_maps: dict, seed: int, device,
                              and r["path"] == "optimize_pose"),
                          loops=len(loops), queries=judged_q,
                          queries_near_threshold=len(queries) - judged_q,
-                         lm_calls=window_lm)
-    out["mix"] = mix(rec)
+                         lm_calls=window["lm_calls"])
+    out["mix"] = window
     return out

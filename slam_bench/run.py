@@ -75,7 +75,9 @@ def main(argv=None) -> int:
     t_check = time.perf_counter()
     numbers = run.check()
     t_check = time.perf_counter() - t_check
-    correct, checks = harness.verdict(numbers, run.config["limits"])
+    correct, checks = harness.verdict(
+        numbers, run.config["limits"],
+        run.traffic.get("nothing_to_judge", ()))
     info = dict(run.info, judged=numbers.get("judged"), mix=numbers.get("mix"),
                 widest=numbers.get("widest"), check_s=t_check)
     print("slam_bench: " + json.dumps(info), file=sys.stderr)
@@ -107,7 +109,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 4
     for name, c in checks.items():
-        print(f"check {name}: {c['value']} (limit {c['limit']})",
+        why = f", unjudged: {c['unjudged']}" if "unjudged" in c else ""
+        print(f"check {name}: {c['value']} (limit {c['limit']}{why})",
               file=sys.stderr)
     print(json.dumps(result))
     return 0

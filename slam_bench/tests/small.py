@@ -1,6 +1,6 @@
 """A cell cut to a size the CPU runs in seconds, for the benchmark's own
 tests: 384^2 maps, 512 beams, 128 samples per beam, 48 thetas, crop 256,
-on a 12 m office."""
+on a 12 m office or the traffic's own corridor, 200 keyframes long."""
 from __future__ import annotations
 
 import copy
@@ -24,14 +24,16 @@ def small(config_name: str, traffic_name: str = "revisit"):
         ref_map.update(beam_capacity=512, samples_per_beam=128)
     else:
         sysc["kwargs"].update(SIZE, n_theta_max=48, crop=256, loop_crop=256)
-    traffic = dict(harness.load_traffic(traffic_name), size=12.0,
-                   course_keyframes=200)
+    traffic = dict(harness.load_traffic(traffic_name), course_keyframes=200)
+    if "world" not in traffic:
+        traffic["size"] = 12.0
     return cfg, traffic
 
 
-def run(config_name, seed, seconds, faults=(), trace_on=False):
-    cfg, traffic = small(config_name)
-    r = harness.Run(f"{config_name}.revisit", seed, "cpu", config=cfg,
+def run(config_name, seed, seconds, faults=(), trace_on=False,
+        traffic_name="revisit"):
+    cfg, traffic = small(config_name, traffic_name)
+    r = harness.Run(f"{config_name}.{traffic_name}", seed, "cpu", config=cfg,
                     traffic=traffic, faults=faults, trace_on=trace_on)
     r.window(seconds)
     return r
