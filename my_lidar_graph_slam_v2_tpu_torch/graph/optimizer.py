@@ -11,11 +11,14 @@ Schur complement over the scan nodes (the default), whose sums run over
 edge shards: one here, one per mesh device and rank in
 ``parallel/distributed.py``.
 
-The JAX package pads every shape to a power-of-two bucket so XLA compiles
-O(log E) programs; eager PyTorch compiles nothing, so the shapes here are
-the graph's own.  All ``num_iterations_max`` LM steps run masked, the
+Every shape is padded to the JAX package's power-of-two buckets
+(:func:`pad_graph`), on every device, so a growing graph meets only
+O(log E) shapes.  All ``num_iterations_max`` LM steps run masked, the
 state frozen once the stop test fires, so the loop needs no host sync per
-iteration: one fetch returns the result.
+iteration: one fetch returns the result.  On a card the single-device LM
+captures those steps once per bucket as a CUDA graph and replays it on
+every later call (:class:`_Replay`): ~1,900 small kernels a call, which
+the host would otherwise queue one by one.
 
 The inputs arrive in f32, as in the JAX package.  The LM runs in f64 on
 ``utils/devmath.py``'s functions and rounds the poses and errors it
@@ -24,7 +27,10 @@ scatter-adds in any order) give the same poses.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+import collections
+import contextlib
+import gc
+from dataclasses import dataclass, field, fields, replace
 
 import numpy as np
 import torch
@@ -158,10 +164,69 @@ def _segment_sum(x, idx, n):
     return out.index_add_(0, idx, x)
 
 
-def schur_pairs(scan_idx: np.ndarray):
+def _bucket(n: int, minimum: int = 16) -> int:
+    """The JAX package's shape bucket: the least ``minimum * 2^k >= n``."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def clip_info(info, clip: float) -> np.ndarray:
+    """Edge information as f32, each matrix scaled down to spectral norm
+    ``clip`` where it is above (see ``OptimizerConfig.info_clip``)."""
+    info = np.array(info, np.float32)
+    norms = np.linalg.norm(info, ord=2, axis=(1, 2))
+    big = norms > clip
+    if big.any():
+        info[big] *= (clip / norms[big])[:, None, None]
+    return info
+
+
+def pad_graph(map_poses, scan_poses, edges):
+    """The JAX wrapper's padding: map and scan poses to ``Mb, Nb =
+    _bucket(M), _bucket(N)`` rows of zeros, the edges (map_idx, scan_idx,
+    is_loop, rel, info) to ``Eb = _bucket(E + 1)``, so at least one edge is
+    padding.  A padded edge has zero rel, info and is_loop and points at
+    the last padded node slot, or at node 0 where none is padded: it adds
+    exact zeros to every sum.  Returns (map poses f32, scan poses f32,
+    padded edges, ``real`` edge mask)."""
+    map_idx, scan_idx, is_loop, rel, info = edges
+    M, N, E = len(map_poses), len(scan_poses), len(map_idx)
+    Mb, Nb, Eb = _bucket(M), _bucket(N), _bucket(E + 1)
+    mp = np.zeros((Mb, 3), np.float32)
+    mp[:M] = map_poses
+    sp = np.zeros((Nb, 3), np.float32)
+    sp[:N] = scan_poses
+    mi = np.full(Eb, Mb - 1 if Mb > M else 0, np.int64)
+    mi[:E] = map_idx
+    si = np.full(Eb, Nb - 1 if Nb > N else 0, np.int64)
+    si[:E] = scan_idx
+    il = np.zeros(Eb, np.int32)
+    il[:E] = is_loop
+    rl = np.zeros((Eb, 3), np.float32)
+    rl[:E] = rel
+    im = np.zeros((Eb, 3, 3), np.float32)
+    im[:E] = info
+    return mp, sp, (mi, si, il, rl, im), np.arange(Eb) < E
+
+
+def schur_pairs(scan_idx: np.ndarray, real=None):
     """Ordered pairs ``(a, b)`` of edges sharing a scan node, ``a == b``
     included: for each scan node of degree k, its k^2 pairs.  Vectorized
-    (the JAX package enumerates them in a Python double loop)."""
+    (the JAX package enumerates them in a Python double loop).  With a
+    ``real`` edge mask the pairs are those of the real edges, padded as
+    the JAX wrapper pads them: to ``_bucket(P)`` pairs, the padded ones
+    on the last padded edge, where there is one."""
+    if real is not None:
+        real = np.asarray(real, bool)
+        keep = np.flatnonzero(real)
+        a, b = schur_pairs(np.asarray(scan_idx)[keep])
+        a, b = keep[a], keep[b]
+        if real.all():
+            return a, b
+        pad = np.full(_bucket(len(a)) - len(a), np.flatnonzero(~real)[-1])
+        return np.concatenate([a, pad]), np.concatenate([b, pad])
     scan_idx = np.asarray(scan_idx, np.int64)
     order = np.argsort(scan_idx, kind="stable")
     _, start, k = np.unique(scan_idx[order], return_index=True,
@@ -188,10 +253,12 @@ class EdgeShard:
     pair_e2: torch.Tensor
 
     @classmethod
-    def upload(cls, device, map_idx, scan_idx, is_loop, rel, info):
+    def upload(cls, device, map_idx, scan_idx, is_loop, rel, info,
+               real=None):
         """The shard of these edges (NumPy arrays, rel and info taken as
-        f32, as the JAX package takes them) on ``device``."""
-        p1, p2 = schur_pairs(scan_idx)
+        f32, as the JAX package takes them) on ``device``; ``real`` masks
+        the padding's edges out of the Schur pairs (:func:`schur_pairs`)."""
+        p1, p2 = schur_pairs(scan_idx, real)
         return cls(
             device,
             to_device(map_idx, device, np.int64),
@@ -277,9 +344,11 @@ def optimize_core(cfg: OptimizerConfig, n_maps, n_scans, map_poses,
                   scan_poses, shards, lam0, reduce=None):
     """Port of ``_optimize_core``: ``num_iterations_max`` masked LM steps
     in f64 over the edge ``shards``, the dense solve (one shard) or
-    :func:`schur_step`, every sum over shards then ranks (``reduce``).
-    Returns (map poses, scan poses, error, lambda, iterations, initial
-    error) as device tensors, the poses and errors rounded to f32."""
+    :func:`schur_step`, every sum over shards then ranks (``reduce``),
+    from lambda ``lam0`` (a 0-d f64 device tensor, so a captured graph
+    reads it rather than baking it in).  Returns (map poses, scan poses,
+    error, lambda, iterations, initial error) as device tensors, the poses
+    and errors rounded to f32.  No operation syncs the host."""
     loss = cfg.loss
     dev = map_poses.device
     mp, sp = map_poses.to(torch.float64), scan_poses.to(torch.float64)
@@ -304,7 +373,7 @@ def optimize_core(cfg: OptimizerConfig, n_maps, n_scans, map_poses,
 
     err = total(mp, sp)
     init_err = err
-    lam = torch.full((), lam0, dtype=torch.float64, device=dev)
+    lam = lam0
     it = torch.zeros((), dtype=torch.int32, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     for _ in range(cfg.num_iterations_max):
@@ -330,16 +399,87 @@ def optimize_core(cfg: OptimizerConfig, n_maps, n_scans, map_poses,
             init_err)
 
 
+@contextlib.contextmanager
+def _collector_paused():
+    """The cyclic garbage collector off for the block: a CUDA graph that it
+    frees inside a capture (an optimizer dropped in a reference cycle)
+    would be destroyed there, which is not permitted during a capture and
+    invalidates it."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
+class _Replay:
+    """:func:`optimize_core` of one shape bucket on one shard, captured as
+    a CUDA graph: the tensors it reads (its first call's inputs, kept) and
+    writes.  A call copies its inputs into them and replays."""
+
+    # The shard's tensors, in its field order
+    SHARD = tuple(f.name for f in fields(EdgeShard) if f.name != "device")
+
+    def __init__(self, graph, inputs, outputs):
+        self.graph, self.inputs, self.outputs = graph, inputs, outputs
+
+    @classmethod
+    def _tensors(cls, map_poses, scan_poses, shard, lam0):
+        return (map_poses, scan_poses, lam0) + tuple(
+            getattr(shard, f) for f in cls.SHARD)
+
+    @classmethod
+    def capture(cls, cfg, n_maps, n_scans, map_poses, scan_poses, shard,
+                lam0):
+        """Warm up on a side stream: one LM step, which runs each of the
+        steps' kernels once at these shapes and makes that stream's cuBLAS
+        and cuSOLVER workspaces, as capture requires.  Then capture all
+        the steps there, in thread-local mode, so that another thread's
+        CUDA calls cannot break the capture, with the garbage collector
+        paused."""
+        dev = map_poses.device
+        here = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            run = (n_maps, n_scans, map_poses, scan_poses, [shard], lam0)
+            optimize_core(replace(cfg, num_iterations_max=1), *run)
+            graph = torch.cuda.CUDAGraph()
+            with _collector_paused():
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    outputs = optimize_core(cfg, *run)
+                finally:
+                    graph.capture_end()
+        here.wait_stream(side)
+        return cls(graph, cls._tensors(map_poses, scan_poses, shard, lam0),
+                   outputs)
+
+    def __call__(self, map_poses, scan_poses, shard, lam0):
+        for dst, src in zip(self.inputs, self._tensors(map_poses, scan_poses,
+                                                       shard, lam0)):
+            dst.copy_(src)
+        self.graph.replay()
+        return self.outputs
+
+
 class PoseGraphOptimizer:
-    """Host wrapper: clips edge information, puts the edges on the device
-    as one shard, and keeps the persistent lambda (the reference keeps
-    ``mLambda`` across Optimize() calls).  The distributed LM
+    """Host wrapper: clips edge information, pads the graph to the JAX
+    package's buckets (:func:`pad_graph`), puts the edges on the device as
+    one shard, and keeps the persistent lambda (the reference keeps
+    ``mLambda`` across Optimize() calls).  On a card it replays one
+    captured CUDA graph per bucket (:meth:`_solve`).  The distributed LM
     (``parallel/distributed.py``) changes only the shards, the sum over
-    ranks, the clip and the metric series."""
+    ranks, the clip and the metric series, and runs eagerly."""
 
     # The reference's series (pose_graph_optimizer_lm.cpp:17-35)
     SERIES = ("NumOfIterations", "InitialError", "FinalError",
               "NumOfLocalMapNodes", "NumOfScanNodes", "NumOfEdges")
+    # Captured buckets kept: the graph only grows, so an older bucket is
+    # not met again
+    GRAPHS_KEPT = 4
 
     def __init__(self, cfg: OptimizerConfig = OptimizerConfig(), *, device):
         self.cfg = cfg
@@ -347,13 +487,45 @@ class PoseGraphOptimizer:
         self.info_clip = cfg.info_clip
         self.reduce = None
         self.lam = cfg.initial_lambda
+        self._graphs = collections.OrderedDict()
         vs = MetricManager.instance().value_sequence
         self._m = {n: vs("PoseGraphOptimizerLM." + n) for n in self.SERIES}
 
-    def _shards(self, map_idx, scan_idx, is_loop, rel, info):
+    def _shards(self, map_idx, scan_idx, is_loop, rel, info, real):
         """The edges this process evaluates, as shards on their devices."""
         return [EdgeShard.upload(self.device, map_idx, scan_idx, is_loop,
-                                 rel, info)]
+                                 rel, info, real)]
+
+    def _replays(self, shards) -> bool:
+        """Whether this call runs as a CUDA graph: on a card, one shard
+        and no sum over ranks, the single-device LM."""
+        return (self.device.type == "cuda" and len(shards) == 1
+                and self.reduce is None)
+
+    def _solve(self, n_maps, n_scans, map_poses, scan_poses, shards, lam0):
+        """:func:`optimize_core`'s outputs: eager, or the replay of the
+        bucket's CUDA graph, captured on the bucket's first call.  The
+        registry counts the captures (``PoseGraphOptimizerLM.GraphCaptures``)
+        and the calls that replay a graph captured by an earlier call
+        (``GraphReplays``)."""
+        args = (n_maps, n_scans, map_poses, scan_poses)
+        if not self._replays(shards):
+            return optimize_core(self.cfg, *args, shards, lam0, self.reduce)
+        (shard,) = shards
+        key = (self.cfg.solver, n_maps, n_scans, len(shard.map_idx),
+               len(shard.pair_e1))
+        mm = MetricManager.instance()
+        replay = self._graphs.pop(key, None)
+        if replay is None:
+            with mm.span("graph.capture"):
+                replay = _Replay.capture(self.cfg, *args, shard, lam0)
+            mm.counter("PoseGraphOptimizerLM.GraphCaptures").increment()
+        else:
+            mm.counter("PoseGraphOptimizerLM.GraphReplays").increment()
+        self._graphs[key] = replay
+        while len(self._graphs) > self.GRAPHS_KEPT:
+            self._graphs.popitem(last=False)
+        return replay(map_poses, scan_poses, shard, lam0)
 
     def optimize(self, map_poses, scan_poses, edges):
         """edges = (map_idx, scan_idx, is_loop, rel, info) as NumPy arrays.
@@ -364,19 +536,17 @@ class PoseGraphOptimizer:
             return map_poses, scan_poses, dict(iterations=0, error=0.0)
         span = MetricManager.instance().span
         with span("graph.prepare"):
-            info = np.array(info, np.float32)
-            # Clip the information's spectral norm (see cfg.info_clip)
-            norms = np.linalg.norm(info, ord=2, axis=(1, 2))
-            big = norms > self.info_clip
-            if big.any():
-                info[big] *= (self.info_clip / norms[big])[:, None, None]
+            info = clip_info(info, self.info_clip)
+            mp, sp, padded, real = pad_graph(
+                map_poses, scan_poses, (map_idx, scan_idx, is_loop, rel, info))
             dev = self.device
-            mp0 = to_device(map_poses, dev, np.float32)
-            sp0 = to_device(scan_poses, dev, np.float32)
-            shards = self._shards(map_idx, scan_idx, is_loop, rel, info)
+            mp0 = to_device(mp, dev)
+            sp0 = to_device(sp, dev)
+            lam0 = torch.full((), float(np.float32(self.lam)),
+                              dtype=torch.float64, device=dev)
+            shards = self._shards(*padded, real)
         with span("graph.solve"):
-            out = optimize_core(self.cfg, M, N, mp0, sp0, shards,
-                                float(np.float32(self.lam)), self.reduce)
+            out = self._solve(len(mp), len(sp), mp0, sp0, shards, lam0)
         mp, sp, err, lam, iters, init_err = fetch(out)
         self.lam = float(lam)
         stats = dict(iterations=int(iters), error=float(err),
@@ -387,4 +557,4 @@ class PoseGraphOptimizer:
                         NumOfScanNodes=N, NumOfEdges=E)
         for name, series in self._m.items():
             series.observe(observed[name])
-        return mp, sp, stats
+        return mp[:M], sp[:N], stats

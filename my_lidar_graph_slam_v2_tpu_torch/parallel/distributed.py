@@ -20,9 +20,10 @@ each error.  Each shard keeps its edges in the graph's order, so a
 one-shard mesh runs exactly the single-device LM.
 
 The JAX module's ``make_distributed_optimize`` (one jitted ``shard_map``
-of the LM per padded shape) has no counterpart: eager PyTorch compiles
-nothing, so :class:`DistributedPoseGraphOptimizer` runs the LM
-(``optimize_core``) directly.
+of the LM per padded shape) has no counterpart:
+:class:`DistributedPoseGraphOptimizer` pads the graph as the
+single-device wrapper does, its padded edges dealt like any others, and
+runs the LM (``optimize_core``) eagerly, never as a captured CUDA graph.
 """
 from __future__ import annotations
 
@@ -130,11 +131,18 @@ class DistributedPoseGraphOptimizer(PoseGraphOptimizer):
         self.ranks = ranks
         self.reduce = ranks.sum if ranks is not None else None
 
-    def _shards(self, map_idx, scan_idx, is_loop, rel, info) -> List[EdgeShard]:
+    def _shards(self, map_idx, scan_idx, is_loop, rel, info,
+                real) -> List[EdgeShard]:
         L = len(self.mesh)
         world, rank = ((self.ranks.world_size, self.ranks.rank)
                        if self.ranks is not None else (1, 0))
         edges = partition_edges(scan_idx, world * L)[rank * L:(rank + 1) * L]
         return [EdgeShard.upload(dev, *(a[e] for a in (
-                    map_idx, scan_idx, is_loop, rel, info)))
+                    map_idx, scan_idx, is_loop, rel, info, real)))
                 for dev, e in zip(self.mesh, edges) if len(e)]
+
+    def _replays(self, shards) -> bool:
+        """Never: the mesh's LM runs eagerly on every mesh, one device
+        included, so that its times per device count (``eval_scaling``)
+        compare one mechanism."""
+        return False

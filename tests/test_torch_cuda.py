@@ -11,7 +11,14 @@ import torch
 
 import torch_gn_cases as gn_cases
 from my_lidar_graph_slam_v2_tpu_torch.ops import csm, csm_cuda, hit_images_cuda
-from torch_counters import dense_reruns, host_fetches, kernel_refines
+from torch_counters import (
+    dense_reruns,
+    graph_captures,
+    graph_replays,
+    host_fetches,
+    kernel_refines,
+)
+from torch_lm_cases import core_lm, loop_graph, walk_graph
 from torch_sweep_cases import (
     TILE_CASES,
     f32_window,
@@ -424,22 +431,6 @@ def test_batched_core_is_bitwise_equal_on_cuda_and_cpu(cuda_device):
             assert torch.equal(g.cpu(), r)
 
 
-def _loop_graph(rng):
-    """An over-constrained map/scan graph: noisy intra edges, an inter edge
-    per map, loop edges from map 0 to the last scans."""
-    M, per_map = 4, 6
-    N = M * per_map
-    mi = list(np.repeat(np.arange(M), per_map)) + list(range(M - 1)) + [0] * 4
-    si = list(range(N)) + [per_map * (m + 1) for m in range(M - 1)] + \
-        list(range(N - 4, N))
-    il = [0] * (N + M - 1) + [1] * 4
-    E = len(mi)
-    edges = (np.array(mi, np.int32), np.array(si, np.int32),
-             np.array(il, np.int32), rng.normal(0, 0.3, (E, 3)),
-             np.tile(np.eye(3) * 100.0, (E, 1, 1)))
-    return rng.normal(0, 1, (M, 3)), rng.normal(0, 1, (N, 3)), edges
-
-
 def test_matching_and_lm_are_bitwise_equal_on_cuda_and_cpu(cuda_device):
     """The f32 math that differs by device (trig, sums over beams, the
     small solves, the LM) runs through ``utils/devmath.py`` or in f64, so
@@ -470,7 +461,7 @@ def test_matching_and_lm_are_bitwise_equal_on_cuda_and_cpu(cuda_device):
                                     else a for a in args))
     assert torch.equal(cov.cpu(), gauss_newton.covariance(*args))
 
-    mp, sp, edges = _loop_graph(rng)
+    mp, sp, edges = loop_graph(rng)
     for solver in ("dense", "schur"):
         cfg = OptimizerConfig(solver=solver)
         a = PoseGraphOptimizer(cfg, device="cpu").optimize(mp, sp, edges)
@@ -606,7 +597,7 @@ def test_distributed_lm_is_bitwise_equal_on_cuda_and_cpu(cuda_device):
         DistributedPoseGraphOptimizer,
     )
 
-    mp, sp, edges = _loop_graph(np.random.default_rng(3))
+    mp, sp, edges = loop_graph(np.random.default_rng(3))
     want = PoseGraphOptimizer(device="cpu").optimize(mp, sp, edges)
     for n in (1, 4):
         for dev in ("cpu", cuda_device):
@@ -615,6 +606,129 @@ def test_distributed_lm_is_bitwise_equal_on_cuda_and_cpu(cuda_device):
             np.testing.assert_array_equal(got[0], want[0])
             np.testing.assert_array_equal(got[1], want[1])
             assert got[2]["iterations"] == want[2]["iterations"]
+
+
+def test_distributed_lm_never_captures(cuda_device):
+    """The distributed LM runs eagerly on 1 and 4 shards on the card."""
+    from my_lidar_graph_slam_v2_tpu_torch.parallel.distributed import (
+        DistributedPoseGraphOptimizer,
+    )
+
+    mp, sp, edges = loop_graph(np.random.default_rng(3))
+    before = graph_captures(), graph_replays()
+    for n in (1, 4):
+        opt = DistributedPoseGraphOptimizer((cuda_device,) * n)
+        for _ in range(2):
+            opt.optimize(mp, sp, edges)
+    assert (graph_captures(), graph_replays()) == before
+
+
+@pytest.mark.parametrize("solver", ["schur", "dense"])
+def test_lm_replay_equals_eager_and_the_cpu(cuda_device, solver):
+    """Three calls on one bucket: the first captures, the next two replay
+    with new poses and the kept lambda.  Each gives the poses, iterations
+    and lambda of the eager LM on the same padded shapes on the card, and
+    of the CPU's LM fed the same calls."""
+    from my_lidar_graph_slam_v2_tpu_torch.graph.optimizer import (
+        OptimizerConfig,
+        PoseGraphOptimizer,
+    )
+
+    cfg = OptimizerConfig(solver=solver)
+    mp, sp, edges = walk_graph(4, 10, 9, 12, pins=False)
+    card = PoseGraphOptimizer(cfg, device=cuda_device)
+    cpu = PoseGraphOptimizer(cfg, device="cpu")
+    c0, r0 = graph_captures(), graph_replays()
+    rng = np.random.default_rng(0)
+    for call in range(3):
+        lam = card.lam
+        got = card.optimize(mp, sp, edges)
+        torch.cuda.synchronize(cuda_device)
+        want = cpu.optimize(mp, sp, edges)
+        em, es, (_, elam, eiters, _) = core_lm(cfg, mp, sp, edges, lam,
+                                               cuda_device, pad=True)
+        assert (graph_captures() - c0, graph_replays() - r0) == (1, call)
+        assert got[2]["iterations"] == want[2]["iterations"] == eiters
+        assert card.lam == cpu.lam == float(np.float32(elam))
+        for g, w, e in ((got[0], want[0], em), (got[1], want[1], es)):
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(g, e)
+        mp = got[0] + rng.normal(0, 0.05, mp.shape)
+        sp = got[1] + rng.normal(0, 0.05, sp.shape)
+
+
+def test_lm_captures_once_per_bucket(cuda_device):
+    """A growing graph that crosses from one bucket into another: two
+    captures, a replay for every other call, the lambda carried across
+    the calls as on the CPU, each call's poses those of the eager LM on
+    the card and of the CPU.  Unpinned graphs: a pinned one's solve
+    amplifies the card's f64 atomic sums, whose order varies, into the
+    f32 poses' last bit (``walk_graph``)."""
+    from my_lidar_graph_slam_v2_tpu_torch.graph.optimizer import (
+        OptimizerConfig,
+        PoseGraphOptimizer,
+    )
+
+    # (maps, scans a map, loop edges): buckets (Mb, Nb, Eb, Pb) of
+    # (16, 64, 64, 64) three times, then (16, 128, 128, 128) twice
+    sizes = [(4, 9, 2), (4, 10, 2), (5, 9, 2), (6, 12, 4), (7, 12, 4)]
+    card = PoseGraphOptimizer(device=cuda_device)
+    cpu = PoseGraphOptimizer(device="cpu")
+    keys = set()
+    c0, r0 = graph_captures(), graph_replays()
+    for seed, (m, k, loops) in enumerate(sizes):
+        mp, sp, edges = walk_graph(seed, m, k, loops, pins=False)
+        lam = card.lam
+        got = card.optimize(mp, sp, edges)
+        want = cpu.optimize(mp, sp, edges)
+        em, es, (_, elam, eiters, _) = core_lm(
+            OptimizerConfig(), mp, sp, edges, lam, cuda_device, pad=True)
+        for g, w, e in ((got[0], want[0], em), (got[1], want[1], es)):
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(g, e)
+        assert got[2]["iterations"] == want[2]["iterations"] == eiters
+        assert card.lam == cpu.lam == float(np.float32(elam))
+        keys.add(next(reversed(card._graphs)))
+    assert len(keys) == 2
+    assert graph_captures() - c0 == 2
+    assert graph_replays() - r0 == len(sizes) - 2
+
+
+def test_lm_capture_survives_a_graph_collected_inside_it(cuda_device,
+                                                        monkeypatch):
+    """An optimizer holding a captured graph, dropped in a reference cycle,
+    is freed by the garbage collector, which may run at any allocation: it
+    must not run inside another capture, where destroying that graph would
+    invalidate the capture (seen as a failed capture when a script built
+    one SLAM object after another)."""
+    import gc
+
+    from my_lidar_graph_slam_v2_tpu_torch.graph.optimizer import (
+        PoseGraphOptimizer,
+    )
+
+    old = PoseGraphOptimizer(device=cuda_device)
+    old.optimize(*loop_graph(np.random.default_rng(3)))
+    assert old._graphs
+    old.cycle = old
+    del old
+    begin = torch.cuda.CUDAGraph.capture_begin
+
+    def begin_then_collect(self, *args, **kw):
+        begin(self, *args, **kw)
+        if gc.isenabled():  # the collector runs here if it may
+            gc.collect()
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin",
+                        begin_then_collect)
+    mp, sp, edges = walk_graph(4, 10, 9, 12, pins=False)
+    c0 = graph_captures()
+    got = PoseGraphOptimizer(device=cuda_device).optimize(mp, sp, edges)
+    want = PoseGraphOptimizer(device="cpu").optimize(mp, sp, edges)
+    assert graph_captures() == c0 + 1
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert gc.isenabled()
 
 
 def _mesh_detector_queries(device):

@@ -21,6 +21,20 @@ def dense_reruns() -> float:
     return MetricManager.instance().counter("LoopDetector.DenseReruns").value
 
 
+def graph_captures() -> float:
+    """``PoseGraphOptimizerLM.GraphCaptures``: the LM's CUDA graphs
+    captured so far, one per new shape bucket."""
+    return MetricManager.instance().counter(
+        "PoseGraphOptimizerLM.GraphCaptures").value
+
+
+def graph_replays() -> float:
+    """``PoseGraphOptimizerLM.GraphReplays``: the LM calls that replayed a
+    captured CUDA graph so far."""
+    return MetricManager.instance().counter(
+        "PoseGraphOptimizerLM.GraphReplays").value
+
+
 class FetchesOf:
     """The host fetches made inside ``obj``'s ``method`` from now on, as
     the object once counted its own: ``n`` sums the rise of
