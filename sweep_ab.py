@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device time of the CSM sweep kernel of one source tree, at every shape
-of ``chip_smoke.py``, so two versions of the kernel can be compared on one
-card in one command:
+the system runs (``tests/torch_card_cases.py``), so two versions of the
+kernel can be compared on one card in one command:
 
     python3 sweep_ab.py OLD_TREE && python3 sweep_ab.py . && \
         python3 sweep_ab.py . && python3 sweep_ab.py OLD_TREE
@@ -14,13 +14,14 @@ tile_h, tile_w, stride)``).  The script builds that tree's
 own plain sweep (``torch.equal``), and prints one JSON line per shape with
 the device ms per call from ``chip_smoke._graph_ms`` (20 launches in one
 CUDA graph, median of 20 replays) and the bound from
-``chip_smoke.sweep_bound``.  The shapes and inputs come from this
-checkout's ``chip_smoke.py`` (seeded), so every tree gets the same inputs.
+``scripts/common.py:sweep_bound``.  The shapes and inputs come from this
+checkout's ``tests/torch_card_cases.py`` (seeded), so every tree gets the
+same inputs.
 
 ``python3 sweep_ab.py --f32 TREE`` does the same for the f32 form
 (``csrc/csm_sweep_f32.cu``, ``csm_cuda.csm_sweep_f32``) at
-``chip_smoke.F32_SHAPES``, on the window of ``chip_smoke.f32_raw_window``
-rounded as precision "split" rounds it (the tree's ``csm.round_window``).
+``torch_card_cases.F32_SHAPES``, on ``torch_card_cases.f32_window``
+rounded as precision "split" rounds it.
 
 Imports nothing of JAX.  Exits non-zero without CUDA.
 """
@@ -32,7 +33,6 @@ import os
 import sys
 from pathlib import Path
 
-import numpy as np
 import torch
 
 
@@ -50,39 +50,42 @@ def main() -> int:
     here = Path(__file__).resolve().parent
     tree = Path(argv[0]).resolve()
     # The tree's package first on the path, so this checkout's
-    # chip_smoke.py (loaded by its path) runs on it too.
+    # chip_smoke.py (loaded by its path) runs on it too; chip_smoke.py puts
+    # this checkout's tests/ on the path for torch_card_cases.
     sys.path.insert(0, str(tree))
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   here / "chip_smoke.py")
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
+    import torch_card_cases as cases
+
     from my_lidar_graph_slam_v2_tpu_torch.ops import csm, csm_cuda
+    from my_lidar_graph_slam_v2_tpu_torch.scripts.common import sweep_bound
 
     if not Path(csm.__file__).resolve().is_relative_to(tree):
         raise RuntimeError(f"imported {csm.__file__}, not {tree}'s package")
     device = torch.device("cuda", 0)
     label = os.path.relpath(tree, here)
     print(f"device: {chip_smoke._nvidia_smi()}; tree {label}", flush=True)
-    rng = np.random.default_rng(0)
     kernel = csm_cuda.csm_sweep_f32 if f32 else csm_cuda.csm_sweep
-    for s in chip_smoke.kernel_shapes():
-        if f32 and s["shape"] not in chip_smoke.F32_SHAPES:
+    for s in cases.kernel_shapes():
+        if f32 and s["shape"] not in cases.F32_SHAPES:
             continue
-        win, hr, hc, ok = chip_smoke.sweep_inputs(rng, s)
-        win = (csm.round_window(torch.as_tensor(
-            chip_smoke.f32_raw_window(rng, win)), "split").numpy() if f32
-            else win.transpose(0, 2, 3, 1).copy())
-        th, tw, stride = s["tile"]
+        win, hr, hc, ok, origins, (th, tw, stride), _ = cases.tile_case(
+            s["shape"])
+        if f32:
+            win = cases.f32_window(win, cases.ALL_CASES.index(s["shape"]),
+                                   "split")
         kw = dict(tile_h=th, tile_w=tw, stride=stride)
         args = tuple(torch.as_tensor(a, device=device) for a in (
-            win, hr, hc, ok, s["origins"]))
+            win, hr, hc, ok, origins))
         ref = csm.sweep_tiles_plain(*args, **kw)
         got = kernel(*args, **kw)
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
             raise AssertionError(f"{label}: kernel != plain at {s['shape']}")
         ms = chip_smoke._graph_ms(lambda: kernel(*args, **kw))
-        bound_ms, bound_by = chip_smoke.sweep_bound(s, ok, f32=f32)
+        bound_ms, bound_by = sweep_bound(s, args[3], f32=f32)
         print("sweep_ab " + json.dumps(dict(
             tree=label, f32=f32, shape=s["shape"], ms=ms, bound_ms=bound_ms,
             bound_by=bound_by, pct_of_bound=100 * bound_ms / ms)), flush=True)

@@ -304,9 +304,15 @@ def test_sweep_and_kernel_wrapper_reject_what_the_kernel_does_not_take(case):
 
 
 # The tile form of the sweep, on the cases the card's kernel is held to
-# (tests/torch_sweep_cases.py: tiles off the window, beams on its edge, an
+# (tests/torch_card_cases.py: tiles off the window, beams on its edge, an
 # all-masked theta, 300 beams in one cell, rows not 4-byte aligned).
-from torch_sweep_cases import TILE_CASES, tile_case  # noqa: E402
+from torch_card_cases import (  # noqa: E402
+    KERNEL_SHAPES,
+    TILE_CASES,
+    kernel_shape,
+    kernel_shapes,
+    tile_case,
+)
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
@@ -335,6 +341,26 @@ def test_tile_sweep_equals_explicit_offsets_and_brute_force(name):
     assert torch.equal(got, csm.sweep_plain(*args, off))
     np.testing.assert_array_equal(got.numpy(),
                                   _brute_sweep(win, hr, hc, ok, off.numpy()))
+
+
+@pytest.mark.parametrize("name", KERNEL_SHAPES)
+def test_kernel_shape_cases_are_the_systems_sweeps(name):
+    """The card's cases at the system's shapes (``torch_card_cases``, which
+    the card tests and ``chip_smoke.py``'s kernel times take): each named
+    shape's widths and tile, its beams in the crop, and arguments the
+    sweep takes."""
+    assert [s["shape"] for s in kernel_shapes()] == list(KERNEL_SHAPES)
+    s = kernel_shape(name)
+    win, hr, hc, ok, origins, tile, crop = tile_case(name)
+    assert win.shape == (s["N"], s["in_r"], s["in_c"], 2)
+    assert hr.shape == hc.shape == ok.shape == (s["N"], s["T"], s["B"])
+    assert tile == s["tile"] and crop == s["crop"] and ok.any()
+    assert (hr[ok] >= 0).all() and (hr[ok] < crop).all()
+    assert (hc[ok] >= 0).all() and (hc[ok] < crop).all()
+    th, tw, stride = tile
+    csm_cuda.check_sweep_args(
+        *[torch.as_tensor(a) for a in (win, hr, hc, ok, origins)],
+        tile_h=th, tile_w=tw, stride=stride)
 
 
 # Cases whose offsets all stay inside the window, where the JAX package's

@@ -1,7 +1,8 @@
-"""Tests of the port that need the card.  They import no JAX (the card's
-machine has none) and skip without a GPU.  On the card:
+"""Tests of the port's kernels on the card: each against its plain
+version, at small cases and at every shape the system runs.  They import
+no JAX (the card's machine has none) and skip without a GPU.  On the card:
 
-    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda*.py -q
 
 (``--noconftest``: the suite's conftest imports JAX.)
 """
@@ -11,6 +12,16 @@ import torch
 
 import torch_gn_cases as gn_cases
 from my_lidar_graph_slam_v2_tpu_torch.ops import csm, csm_cuda, hit_images_cuda
+from torch_card_cases import (
+    ALL_CASES,
+    F32_SHAPES,
+    KERNEL_SHAPES,
+    TILE_CASES,
+    cuda_device,  # noqa: F401 (fixture)
+    f32_window,
+    small_cell_window,
+    tile_case,
+)
 from torch_counters import (
     dense_reruns,
     graph_captures,
@@ -19,23 +30,20 @@ from torch_counters import (
     kernel_refines,
 )
 from torch_lm_cases import core_lm, loop_graph, walk_graph
-from torch_sweep_cases import (
-    TILE_CASES,
-    f32_window,
-    small_cell_window,
-    tile_case,
-)
 
 pytestmark = pytest.mark.cuda
 
 
-@pytest.fixture
-def cuda_device():
-    """The card, decided when the test runs (never at import or
-    collection): without one the test skips."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with CUDA")
-    return torch.device("cuda", 0)
+def test_f32_sweep_kernels_convert_no_f32_to_f64(cuda_device):
+    """The f32 sweep sums in exact fixed point: its kernels hold no
+    f32-to-f64 convert (``F2F.F64.F32`` in ``cuobjdump -sass``).  The
+    pack kernel is not held to that."""
+    from my_lidar_graph_slam_v2_tpu_torch.ops import cuda_build
+
+    path = cuda_build.build("csm_sweep_f32")["csm_sweep_f32"]["path"]
+    counts = cuda_build.sass_counts(path, "F2F.F64.F32")
+    sweeps = {k: v for k, v in counts.items() if "pack_f32_kernel" not in k}
+    assert sweeps and not any(sweeps.values()), sweeps
 
 
 def _inputs(rng, N, T, B, crop, in_r, in_c):
@@ -46,7 +54,7 @@ def _inputs(rng, N, T, B, crop, in_r, in_c):
     return win, hr, hc, ok
 
 
-@pytest.mark.parametrize("name", TILE_CASES)
+@pytest.mark.parametrize("name", TILE_CASES + list(KERNEL_SHAPES))
 def test_tile_kernel_equals_plain(cuda_device, name):
     win, hr, hc, ok, origins, (th, tw, stride), _ = tile_case(name)
     args = [torch.as_tensor(a) for a in (win, hr, hc, ok, origins)]
@@ -122,14 +130,15 @@ def test_kernel_raises_on_what_it_does_not_take(cuda_device):
     assert csm_cuda.LAUNCHES == before
 
 
-@pytest.mark.parametrize("precision", ["highest", "split"])
-@pytest.mark.parametrize("name", TILE_CASES)
+@pytest.mark.parametrize("precision", ["highest", "fast", "split"])
+@pytest.mark.parametrize("name", TILE_CASES + list(F32_SHAPES))
 def test_f32_tile_kernel_equals_plain(cuda_device, name, precision):
-    """The f32 kernel at every tile case, on windows rounded as each
-    precision rounds them: its exact f64 sums equal the plain version's
-    bit for bit, and one launch is counted apart from the u8 kernel's."""
+    """The f32 kernel at every tile case and f32 path's shape, on windows
+    rounded as each precision rounds them: its exact f64 sums equal the
+    plain version's bit for bit, whatever the beams' order, and one
+    launch is counted apart from the u8 kernel's."""
     win, hr, hc, ok, origins, (th, tw, stride), _ = tile_case(name)
-    win = f32_window(win, TILE_CASES.index(name), precision)
+    win = f32_window(win, ALL_CASES.index(name), precision)
     args = [torch.as_tensor(a) for a in (win, hr, hc, ok, origins)]
     kw = dict(tile_h=th, tile_w=tw, stride=stride)
     ref = csm.sweep_tiles_plain(*args, **kw)
@@ -140,6 +149,14 @@ def test_f32_tile_kernel_equals_plain(cuda_device, name, precision):
     assert csm_cuda.F32_LAUNCHES == before + 1
     assert csm_cuda.F32_PACK_LAUNCHES == before_pack + 1
     assert csm_cuda.LAUNCHES == before_u8
+    assert torch.equal(out.cpu(), ref)
+    perm = torch.randperm(hr.shape[-1],
+                          generator=torch.Generator().manual_seed(3))
+    beams = [a[..., perm] for a in args[1:4]]
+    assert torch.equal(csm.sweep_tiles_plain(args[0], *beams, args[4], **kw),
+                       ref)
+    out = csm.sweep(*[a.to(cuda_device) for a in (args[0], *beams, args[4])],
+                    **kw)
     assert torch.equal(out.cpu(), ref)
 
 
@@ -195,7 +212,8 @@ def test_f32_kernel_at_2048_beams_all_ones(cuda_device, tile):
 
 @pytest.mark.parametrize("rounded", [False, True], ids=["raw", "rounded"])
 @pytest.mark.parametrize("name", ["one tile", "strided off window",
-                                  "300-beam cell", "unaligned rows"])
+                                  "300-beam cell", "unaligned rows",
+                                  *F32_SHAPES])
 def test_f32_kernel_equals_plain_below_2_18(cuda_device, name, rounded):
     """A window of cells below 2^-18 (1e-7, 3e-9, 2^-40, ties) among
     ordinary ones (ROADMAP 3.15): the kernel's pack rounds each cell to a
@@ -218,31 +236,37 @@ def test_f32_kernel_equals_plain_below_2_18(cuda_device, name, rounded):
 
 # Windows of the pack: the frontend's (an odd number of cells), one of a
 # precision's roundings, the clamp's ends with unobserved cells that hold
-# a prob, cells below 2^-18 (rounded to the nearest integer), and a
-# 1024 x 1024 map pair.
+# a prob, cells below 2^-18 (rounded to the nearest integer), a 1024 x 1024
+# map pair, and the "split" window of each f32 path's shape.
 @pytest.mark.parametrize("case", ["split 329", "fast", "ends", "below 2^-18",
-                                  "map pair"])
+                                  "map pair", *F32_SHAPES])
 def test_f32_pack_kernel_equals_plain(cuda_device, case):
-    rng = np.random.default_rng(len(case))
-    shape = {"split 329": (1, 329, 329), "map pair": (2, 1024, 1024)}.get(
-        case, (3, 37, 41))
-    obs = rng.uniform(size=shape) < 0.7
-    p = rng.uniform(1e-3, 1 - 1e-3, shape).astype(np.float32)
-    if case == "ends":
-        p = np.where(rng.uniform(size=shape) < 0.5, np.float32(1e-3),
-                     np.float32(1 - 1e-3))
-    elif case == "below 2^-18":
-        p = (rng.integers(0, 2 ** 12, shape) * 2.0 ** -52).astype(np.float32)
-    win = torch.as_tensor(np.stack(
-        [np.where(obs | (case == "ends"), p, 0), obs], -1).astype(np.float32))
-    if case in ("split 329", "fast"):
-        win = csm.round_window(win, case.split()[0])
+    if case in F32_SHAPES:
+        win = torch.as_tensor(f32_window(tile_case(case)[0],
+                                         ALL_CASES.index(case), "split"))
+    else:
+        rng = np.random.default_rng(len(case))
+        shape = {"split 329": (1, 329, 329),
+                 "map pair": (2, 1024, 1024)}.get(case, (3, 37, 41))
+        obs = rng.uniform(size=shape) < 0.7
+        p = rng.uniform(1e-3, 1 - 1e-3, shape).astype(np.float32)
+        if case == "ends":
+            p = np.where(rng.uniform(size=shape) < 0.5, np.float32(1e-3),
+                         np.float32(1 - 1e-3))
+        elif case == "below 2^-18":
+            p = (rng.integers(0, 2 ** 12, shape) * 2.0 ** -52).astype(
+                np.float32)
+        win = torch.as_tensor(np.stack(
+            [np.where(obs | (case == "ends"), p, 0), obs], -1).astype(
+                np.float32))
+        if case in ("split 329", "fast"):
+            win = csm.round_window(win, case.split()[0])
     before, before_sweep = csm_cuda.F32_PACK_LAUNCHES, csm_cuda.F32_LAUNCHES
     got = csm_cuda.csm_pack_f32(win.to(cuda_device))
     torch.cuda.synchronize(cuda_device)
     assert csm_cuda.F32_PACK_LAUNCHES == before + 1
     assert csm_cuda.F32_LAUNCHES == before_sweep
-    assert got.dtype == torch.int64 and got.shape == shape
+    assert got.dtype == torch.int64 and got.shape == win.shape[:-1]
     assert torch.equal(got.cpu(), csm.pack_f32_window_plain(win))
 
 
@@ -312,12 +336,13 @@ def test_rasterize_adds_are_bitwise_equal_on_cuda_and_cpu(cuda_device,
 
 # (T, B, crop_rows, crop_cols, pile): branch-and-bound's shape, the
 # frontend crop, an odd non-square shape, and 300 beams of every theta in
-# one cell.
+# one cell, small and at branch-and-bound's shape.
 @pytest.mark.parametrize("shape", [
     (208, 512, 448, 448, 0),
     (208, 512, 320, 320, 0),
     (7, 333, 40, 56, 0),
     (16, 512, 64, 64, 300),
+    (208, 512, 448, 448, 300),
 ])
 def test_hit_kernel_equals_plain(cuda_device, shape):
     T, B, CR, CC, pile = shape
@@ -850,11 +875,13 @@ def _gn_kernel_vs_plain(device, args, **kw):
 
 # (course case, options of torch_gn_cases.case): the frontend's and the
 # final matcher's inputs at 181 valid beams of 512, on u8 and f32 maps,
-# from random starts, with all 512 beams valid and with 2,048.
+# from random starts, with all 512 beams valid and with 2,048, and on the
+# system's 1024 x 1024 maps.
 GN_CASES = [
     (name, opts) for name in ("frontend", "loop") for opts in (
         {}, dict(f32=True), dict(start_seed=1), dict(start_seed=2),
-        dict(start_seed=3, f32=True), dict(beams=512), dict(beams=2048))
+        dict(start_seed=3, f32=True), dict(beams=512), dict(beams=2048),
+        dict(size=1024), dict(size=1024, f32=True))
 ]
 
 

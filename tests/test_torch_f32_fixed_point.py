@@ -27,7 +27,7 @@ import torch
 
 from my_lidar_graph_slam_v2_tpu_torch.matching import grid_search
 from my_lidar_graph_slam_v2_tpu_torch.ops import csm, quant
-from torch_sweep_cases import (
+from torch_card_cases import (
     SMALL_CELLS,
     f32_window,
     small_cell_window,
@@ -73,7 +73,7 @@ def _window(kind, win_u8, seed):
     """An f32 window of ``kind`` where ``win_u8`` is observed (0
     elsewhere): probabilities uniform in [1e-3, 1 - 1e-3] rounded at a
     precision, u8 levels / 255, the clamp's two ends, all 2^-18, or cells
-    below 2^-18 (:func:`torch_sweep_cases.small_cell_window`)."""
+    below 2^-18 (:func:`torch_card_cases.small_cell_window`)."""
     if kind in ("highest", "fast", "split"):
         return torch.as_tensor(f32_window(win_u8, seed, kind))
     if kind == "below 2^-18":

@@ -1,11 +1,11 @@
 """The HillClimbing + GreedyEndpoint frontend of the reference's settings
 file in both packages (ROADMAP 3.10): ``create_slam_from_settings`` with
-``chip_smoke.HILL_CLIMBING_SETTINGS``, inline, over the first keyframes of
-``chip_smoke.py``'s office sequence (seed 0): 24 keyframes, past four
-local-map starts.  Odometry drifts slowly at first: over the first 12
-keyframes its ATE (0.0082 m) stays below the climber's own error (0.0140
-m), and from keyframe 21 on the climber beats it (0.0137 against 0.0203 m
-at 24; the port on the CPU).
+``torch_card_cases.HILL_CLIMBING_SETTINGS``, inline, over the first
+keyframes of ``torch_card_cases.office_sequence()`` (seed 0): 24
+keyframes, past four local-map starts.  Odometry drifts slowly at first:
+over the first 12 keyframes its ATE (0.0082 m) stays below the climber's
+own error (0.0140 m), and from keyframe 21 on the climber beats it (0.0137
+against 0.0203 m at 24; the port on the CPU).
 
 Tolerances, fixed before the first run: the same keyframe count; poses
 within 0.02 m and 0.01 rad.  Greedy-endpoint costs tie exactly, and the JAX
@@ -24,7 +24,6 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
-import chip_smoke
 from my_lidar_graph_slam_v2_tpu.config import settings as jsettings
 from my_lidar_graph_slam_v2_tpu.datasets import synthetic as jsyn
 from my_lidar_graph_slam_v2_tpu_torch.config import settings as psettings
@@ -32,6 +31,8 @@ from my_lidar_graph_slam_v2_tpu_torch.datasets import synthetic as psyn
 from my_lidar_graph_slam_v2_tpu_torch.matching.hill_climbing import (
     ScanMatcherHillClimbing,
 )
+from torch_card_cases import HILL_CLIMBING_SETTINGS
+from torch_card_cases import KEYFRAMES as OFFICE_KEYFRAMES
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KEYFRAMES = 24
@@ -40,12 +41,12 @@ TOL_THETA = 0.01
 
 
 def _sequence(module):
-    """``chip_smoke.build_sequence(48)`` built with ``module``'s
+    """``torch_card_cases.office_sequence()`` built with ``module``'s
     synthetic worlds (the JAX package's or the port's)."""
     size, step = 18.0, 0.08
     one = module.loop_trajectory(size=size, laps=1.0, step=step)
     per_lap = float(np.sum(np.hypot(np.diff(one[:, 0]), np.diff(one[:, 1]))))
-    laps = chip_smoke.KEYFRAMES * 0.5 * 1.06 / per_lap
+    laps = OFFICE_KEYFRAMES * 0.5 * 1.06 / per_lap
     return module.generate(
         module.World.office(seed=0, size=size),
         module.loop_trajectory(size=size, laps=laps, step=step),
@@ -69,7 +70,7 @@ def _drive(slam, seq):
 
 @pytest.fixture(scope="module")
 def runs():
-    settings = chip_smoke.HILL_CLIMBING_SETTINGS
+    settings = HILL_CLIMBING_SETTINGS
     j = _drive(jsettings.create_slam_from_settings(settings,
                                                    inline_backend=True),
                _sequence(jsyn))

@@ -231,12 +231,14 @@ def test_port_imports_and_matches_without_jax():
 
 
 def test_port_sources_do_not_import_jax_or_the_jax_package():
-    """Every import statement in the port's package and in its scripts,
+    """Every import statement in the port's package, in its scripts and in
+    the card's tests with the helpers they import (``tests/torch_*.py``),
     read from the source (an import inside a function counts too)."""
     files = sorted((ROOT / (JAX_PACKAGE + "_torch")).rglob("*.py"))
-    files += [ROOT / n for n in ("chip_smoke.py", "profile_slice.py",
-                                 "sweep_ab.py", "backend_ab.py",
+    files += [ROOT / n for n in ("chip_smoke.py", "sweep_ab.py",
                                  "span_audit.py")]
+    files += sorted((ROOT / "tests").glob("torch_*.py"))
+    files += sorted((ROOT / "tests").glob("test_torch_cuda*.py"))
     assert len(files) > 40
     found = []
     for f in files:

@@ -9,8 +9,8 @@ subject is a protocol with stub backends.  Bars, fixed before the first
 run:
 - inline: the same keyframes and loop-edge count as the JAX package, the
   port's ATE within 0.005 m of the JAX run's (the same bar as
-  ``chip_smoke.py``'s multi-device phases), both below the JAX test's
-  0.12 m;
+  the card's multi-device tests, ``tests/test_torch_cuda_slices.py``),
+  both below the JAX test's 0.12 m;
 - threaded: at least one backend step on the worker thread, a loop edge,
   ATE below 0.12 m (ROADMAP 3.11: the worker's pace moves the loop
   closures, so its ATE is bounded, not compared);

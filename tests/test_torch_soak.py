@@ -7,9 +7,10 @@ entries) and the same invariants: at least 300 keyframes, more than 64
 local maps, at least 10 loop edges, ATE below 0.30 m and half of
 odometry's, no out-of-extent hit, cache evictions and hits with at most
 16 entries, and host RSS growth below 1,500 MB.  The JAX test's
-jit-cache bounds have no counterpart in eager PyTorch; ``chip_smoke.py``
-phase 17b holds the card's (no kernel built during the run, constant
-sweep launches per keyframe) at the factory widths.  The map cache's
+jit-cache bounds have no counterpart in eager PyTorch;
+``tests/test_torch_cuda_runs.py::test_soak_on_the_card`` holds the card's
+(no kernel built during the run, constant sweep launches per keyframe)
+at the factory widths.  The map cache's
 ``stats`` is read as the property it is in both packages (the JAX test
 calls it, ROADMAP 3.17).
 

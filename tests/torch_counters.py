@@ -52,3 +52,28 @@ class FetchesOf:
                 self.n += host_fetches() - f0
 
         setattr(obj, method, counted)
+
+
+class PerCall:
+    """Each call of ``obj``'s ``method`` from now on, as a dict in
+    ``calls``: the rise of every counter of ``counters`` (name: a function
+    returning its running count) over the call, and ``size``, the length
+    of its first argument where it has one (a batch of queries)."""
+
+    def __init__(self, obj, method: str, **counters):
+        self.calls = []
+        call = getattr(obj, method)
+
+        def counted(*args, **kw):
+            before = {k: c() for k, c in counters.items()}
+            out = call(*args, **kw)
+            row = {k: c() - before[k] for k, c in counters.items()}
+            if args and hasattr(args[0], "__len__"):
+                row["size"] = len(args[0])
+            self.calls.append(row)
+            return out
+
+        setattr(obj, method, counted)
+
+    def total(self, key: str):
+        return sum(c[key] for c in self.calls)
