@@ -28,8 +28,6 @@ scatter-adds in any order) give the same poses.
 from __future__ import annotations
 
 import collections
-import contextlib
-import gc
 from dataclasses import dataclass, field, fields, replace
 
 import numpy as np
@@ -37,6 +35,7 @@ import torch
 
 from ..metrics.registry import MetricManager
 from ..utils import devmath
+from ..utils.capture import collector_paused
 from ..utils.transfer import fetch, to_device
 from .loss import LossFunction
 
@@ -399,21 +398,6 @@ def optimize_core(cfg: OptimizerConfig, n_maps, n_scans, map_poses,
             init_err)
 
 
-@contextlib.contextmanager
-def _collector_paused():
-    """The cyclic garbage collector off for the block: a CUDA graph that it
-    frees inside a capture (an optimizer dropped in a reference cycle)
-    would be destroyed there, which is not permitted during a capture and
-    invalidates it."""
-    enabled = gc.isenabled()
-    gc.disable()
-    try:
-        yield
-    finally:
-        if enabled:
-            gc.enable()
-
-
 class _Replay:
     """:func:`optimize_core` of one shape bucket on one shard, captured as
     a CUDA graph: the tensors it reads (its first call's inputs, kept) and
@@ -447,7 +431,7 @@ class _Replay:
             run = (n_maps, n_scans, map_poses, scan_poses, [shard], lam0)
             optimize_core(replace(cfg, num_iterations_max=1), *run)
             graph = torch.cuda.CUDAGraph()
-            with _collector_paused():
+            with collector_paused():
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     outputs = optimize_core(cfg, *run)

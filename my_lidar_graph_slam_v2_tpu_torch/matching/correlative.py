@@ -107,7 +107,7 @@ def correlative_core_batch(cfg: CorrelativeConfig, prob, observed,
                            coarse_prob, coarse_observed, ranges, angles, mask,
                            sensor_pose, offset_xy, score_threshold,
                            known_rate_threshold, *, map_index=None,
-                           dense: bool = False):
+                           dense: bool = False, sweep_fn=None):
     """``_correlative_core`` for N candidates at once (the body of the JAX
     package's ``vmap``, ``parallel/loop_sharded.py:49-63``): beams ``[N,
     B]``, map-local sensor poses ``[N, 3]`` and raster offsets ``[N, 2]``;
@@ -121,7 +121,12 @@ def correlative_core_batch(cfg: CorrelativeConfig, prob, observed,
     top-K thetas, top-B blocks and tie-break), and nothing sums across the
     candidate axis, so each row equals the single-candidate call.  Returns
     the 9-tuple (pose, score, known, found, cost / n, cov, n_processed,
-    n_total, exact) with a leading ``N`` axis, on the device."""
+    n_total, exact) with a leading ``N`` axis, on the device.
+
+    ``sweep_fn``, if given, is called in place of ``ops/csm.py:sweep``
+    for both sweeps (``models/fused_matcher.py`` captures the work
+    around them)."""
+    run_sweep = sweep_fn or csm.sweep
     if cfg.sweep_backend not in ("matmul", "gather"):
         raise ValueError(f"unknown sweep_backend {cfg.sweep_backend!r}")
     gather = cfg.sweep_backend == "gather"
@@ -155,7 +160,7 @@ def correlative_core_batch(cfg: CorrelativeConfig, prob, observed,
         )  # [N, T, B]
         c_scores, c_known = csm.sweep_windows(
             coarse_prob, coarse_observed, hr, hc, ok_tb, y0, x0,
-            ny=nby, nx=nbx, stride=LR, map_index=map_index,
+            ny=nby, nx=nbx, stride=LR, map_index=map_index, sweep_fn=sweep_fn,
         )  # [N, T, nby, nbx]
     else:
         hr, hc, valid, r0, c0 = csm.beam_cells(
@@ -191,7 +196,7 @@ def correlative_core_batch(cfg: CorrelativeConfig, prob, observed,
                 precision=cfg.precision,
             )
         origin = torch.zeros((N, 1, 2), dtype=torch.int32, device=dev)
-        c = csm.sweep(
+        c = run_sweep(
             coarse_inp.contiguous(), hr, hc, ok_tb, origin,
             tile_h=nby, tile_w=nbx, stride=LR,
         )  # [N, T, 2, nby * nbx]
@@ -255,7 +260,7 @@ def correlative_core_batch(cfg: CorrelativeConfig, prob, observed,
     if gather:
         f = torch.stack(csm.sweep_windows(
             prob, observed, hr_s, hc_s, ok_s, y0, x0, ny=nyf, nx=nxf,
-            stride=1, map_index=map_index,
+            stride=1, map_index=map_index, sweep_fn=sweep_fn,
         ), dim=2).reshape(N, R, 2, -1)
     else:
         fine_inp = csm.sweep_input_window(
@@ -263,7 +268,7 @@ def correlative_core_batch(cfg: CorrelativeConfig, prob, observed,
             in_rows=CR + nyf - 1, in_cols=CC + nxf - 1,
             precision=cfg.precision,
         )
-        f = csm.sweep(
+        f = run_sweep(
             fine_inp, hr_s, hc_s, ok_s, origins.to(torch.int32),
             tile_h=tile_h, tile_w=tile_w, stride=1,
         )  # [N, R, 2, n_off]
@@ -320,7 +325,7 @@ def correlative_core_batch(cfg: CorrelativeConfig, prob, observed,
 def correlative_core(cfg: CorrelativeConfig, prob, observed, coarse_prob,
                      coarse_observed, ranges, angles, mask, sensor_pose,
                      offset_xy, score_threshold, known_rate_threshold, *,
-                     dense: bool = False):
+                     dense: bool = False, sweep_fn=None):
     """Port of ``_correlative_core`` for one candidate: the batched core
     at N = 1 on one raster ``[H, W]``.  Returns the same 9-tuple of device
     tensors (pose, score, known, found, cost / n, cov, n_processed,
@@ -329,6 +334,7 @@ def correlative_core(cfg: CorrelativeConfig, prob, observed, coarse_prob,
         cfg, prob, observed, coarse_prob, coarse_observed, ranges[None],
         angles[None], mask[None], sensor_pose[None], offset_xy[None],
         score_threshold, known_rate_threshold, dense=dense,
+        sweep_fn=sweep_fn,
     )
     return tuple(o[0] for o in out)
 

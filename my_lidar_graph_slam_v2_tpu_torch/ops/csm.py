@@ -370,7 +370,7 @@ def sweep(win, hr, hc, ok, origins, *, tile_h, tile_w, stride):
 
 
 def sweep_windows(prob, observed, row, col, ok, y0, x0, *, ny, nx, stride=1,
-                  map_index=None):
+                  map_index=None, sweep_fn=None):
     """The sweep by per-beam windows, with no crop
     (``ops/csm.py:sweep_windows``, the JAX package's semantics oracle):
     ``S[t, j, i] = sum_b map[row[t,b] + y0 + j * stride, col[t,b] + x0 + i
@@ -385,7 +385,7 @@ def sweep_windows(prob, observed, row, col, ok, y0, x0, *, ny, nx, stride=1,
     Cells ``[T, B]`` against one map ``[H, W]`` give ``(scores, known)``
     f32 ``[T, ny, nx]``; cells ``[N, T, B]`` give ``[N, T, ny, nx]``,
     against one map or a stack ``[M, H, W]`` with ``map_index`` (i64
-    ``[N]``)."""
+    ``[N]``).  ``sweep_fn`` is called in place of :func:`sweep` if given."""
     single = row.ndim == 2
     if single:
         row, col, ok = row[None], col[None], ok[None]
@@ -395,12 +395,14 @@ def sweep_windows(prob, observed, row, col, ok, y0, x0, *, ny, nx, stride=1,
         win = win.expand(N, *win.shape[1:])
     else:
         win = map_planes(prob, observed, (map_index,))
-    dev = row.device
-    origins = torch.stack([torch.as_tensor(y0, device=dev),
-                           torch.as_tensor(x0, device=dev)]).to(torch.int32)
-    out = sweep(win.contiguous(), row.contiguous(), col.contiguous(),
-                ok.contiguous(), origins.expand(N, 1, 2).contiguous(),
-                tile_h=ny, tile_w=nx, stride=stride)
+    # Filled on the device: no host-to-device copy, which a CUDA graph
+    # could not capture
+    origins = torch.empty((N, 1, 2), dtype=torch.int32, device=row.device)
+    origins[..., 0] = y0
+    origins[..., 1] = x0
+    out = (sweep_fn or sweep)(
+        win.contiguous(), row.contiguous(), col.contiguous(), ok.contiguous(),
+        origins, tile_h=ny, tile_w=nx, stride=stride)
     out = out.reshape(N, T, 2, ny, nx)
     scores, known = out[:, :, 0], out[:, :, 1]
     return (scores[0], known[0]) if single else (scores, known)

@@ -6,6 +6,9 @@ no JAX (the card's machine has none) and skip without a GPU.  On the card:
 
 (``--noconftest``: the suite's conftest imports JAX.)
 """
+import dataclasses
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -753,6 +756,241 @@ def test_lm_capture_survives_a_graph_collected_inside_it(cuda_device,
     assert graph_captures() == c0 + 1
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
+    assert gc.isenabled()
+
+
+@functools.lru_cache(maxsize=2)
+def _search_config(loop):
+    """The config and thresholds of the search of the frontend's matcher,
+    or of the serial loop detector's, as the factory builds them."""
+    from my_lidar_graph_slam_v2_tpu_torch.pipeline.factory import (
+        create_default_backend,
+        create_default_slam,
+    )
+
+    if loop:
+        det = create_default_backend(device="cpu",
+                                     sharded=False).loop_detector
+        return det.scan_matcher.ccfg, (det.cfg.score_threshold,
+                                       det.cfg.known_rate_threshold)
+    return create_default_slam(device="cpu").frontend.scan_matcher.ccfg, (
+        0.0, 0.0)
+
+
+def _search_case(device, seed, *, loop, backend="matmul"):
+    """One search at the system's shapes, from a seed: a 1024^2 u8 map at
+    5 cm of a 12 m x 8 m room (walls of 200-255, floor 1-29), a scan of
+    its walls from a pose near the centre (512 beam slots, ~90 % valid),
+    the initial pose off it by up to 0.05 m (the frontend) or 0.5 m (the
+    serial loop detector, which also holds the full pooled coarse maps).
+    Returns the matcher's config (on the sweep ``backend``) and
+    thresholds (:func:`_search_config`) and the inputs on the CPU and on
+    ``device``."""
+    from my_lidar_graph_slam_v2_tpu_torch.ops import pool
+
+    cfg, thresholds = _search_config(loop)
+    cfg = dataclasses.replace(cfg, sweep_backend=backend)
+    rng = np.random.default_rng(seed)
+    n, res, org = 1024, 0.05, -25.6
+    hx, hy = 6.0, 4.0
+    obs = np.zeros((n, n), bool)
+    lo, hi = int((-hx - 0.2 - org) / res), int((hx + 0.2 - org) / res)
+    blo, bhi = int((-hy - 0.2 - org) / res), int((hy + 0.2 - org) / res)
+    obs[blo:bhi, lo:hi] = True
+    prob = np.where(obs, rng.integers(1, 30, (n, n)), 0)
+    for x in (-hx, hx):
+        c = int((x - org) / res)
+        prob[blo:bhi, c - 1:c + 1] = rng.integers(200, 256, (bhi - blo, 2))
+    for y in (-hy, hy):
+        r = int((y - org) / res)
+        prob[r - 1:r + 1, lo:hi] = rng.integers(200, 256, (2, hi - lo))
+    true = np.array([rng.uniform(-1, 1), rng.uniform(-1, 1),
+                     rng.uniform(-0.3, 0.3)])
+    B = 512
+    angles = np.linspace(-np.pi, np.pi, B, endpoint=False)
+    a = angles + true[2]
+    c, s = np.cos(a), np.sin(a)
+    with np.errstate(divide="ignore"):
+        tx = np.where(c > 0, (hx - true[0]) / c, (-hx - true[0]) / c)
+        ty = np.where(s > 0, (hy - true[1]) / s, (-hy - true[1]) / s)
+    ranges = np.minimum(np.abs(tx), np.abs(ty)) + rng.normal(0, 0.01, B)
+    off = 0.5 if loop else 0.05
+    pose = true + rng.uniform(-off, off, 3) * np.array([1, 1, 0.2])
+    prob = torch.as_tensor(prob.astype(np.uint8))
+    obs = torch.as_tensor(obs)
+    coarse = ((pool.sliding_window_max2d(prob, cfg.low_resolution),
+               pool.sliding_window_max2d(obs, cfg.low_resolution))
+              if loop else (None, None))
+    args = (prob, obs, *coarse,
+            torch.as_tensor(ranges.astype(np.float32)),
+            torch.as_tensor(angles.astype(np.float32)),
+            torch.as_tensor(rng.uniform(size=B) < 0.9),
+            torch.as_tensor(pose.astype(np.float32)),
+            torch.tensor([org, org], dtype=torch.float32))
+    on = tuple(None if x is None else x.to(device) for x in args)
+    return cfg, thresholds, args, on
+
+
+def search_graph_counts(name):
+    from my_lidar_graph_slam_v2_tpu_torch.metrics.registry import (
+        MetricManager,
+    )
+
+    mm = MetricManager.instance()
+    return (mm.counter(f"{name}.GraphCaptures").value,
+            mm.counter(f"{name}.GraphReplays").value)
+
+
+# (the serial loop detector's search, dense, sweep backend)
+SEARCH_CASES = {"frontend": (False, False, "matmul"),
+                "frontend dense": (False, True, "matmul"),
+                "serial loop": (True, False, "matmul"),
+                "serial loop dense": (True, True, "matmul"),
+                "serial loop gather": (True, False, "gather")}
+
+
+@pytest.mark.parametrize("case", list(SEARCH_CASES))
+def test_search_replay_equals_eager_and_the_cpu(cuda_device, case):
+    """At the system's shapes (the frontend's pruned search and its dense
+    re-run, crop 320; the serial loop detector's, crop 448 with the full
+    pooled coarse maps, on both sweep backends): one capture and three
+    replays, each call on other inputs, give the 9 outputs of the eager
+    search on the card and on the CPU bit for bit, and launch the eager
+    search's two sweeps; one capture per key and a replay for every other
+    call."""
+    from my_lidar_graph_slam_v2_tpu_torch.matching.correlative import (
+        correlative_core,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.models.fused_matcher import (
+        SearchGraphs,
+    )
+
+    loop, dense, backend = SEARCH_CASES[case]
+    name = f"CardTest.{case.replace(' ', '_')}"
+    graphs = SearchGraphs(name)
+    c0 = search_graph_counts(name)
+    for call in range(4):
+        cfg, thr, args, on = _search_case(cuda_device, 40 + call, loop=loop,
+                                          backend=backend)
+        n0 = csm_cuda.LAUNCHES
+        eager = correlative_core(cfg, *on, *thr, dense=dense)
+        torch.cuda.synchronize(cuda_device)
+        n_eager = csm_cuda.LAUNCHES - n0
+        n0 = csm_cuda.LAUNCHES
+        got = graphs(cfg, *on, *thr, dense=dense)
+        torch.cuda.synchronize(cuda_device)
+        assert csm_cuda.LAUNCHES - n0 == n_eager == 2
+        got = [g.cpu() for g in got]
+        want = correlative_core(cfg, *args, *thr, dense=dense)
+        assert len(got) == 9
+        for g, e, w in zip(got, eager, want):
+            assert torch.equal(g, e.cpu()) and torch.equal(g, w)
+        counts = search_graph_counts(name)
+        assert (counts[0] - c0[0], counts[1] - c0[1]) == (1, call)
+    assert len(graphs._graphs) == 1
+
+
+def test_search_outputs_survive_a_call_at_the_other_key(cuda_device):
+    """The pruned search and its dense re-run are two keys, two graphs:
+    the device outputs of a replay at one key stay as they were fetched
+    through a replay at the other, on other inputs."""
+    from my_lidar_graph_slam_v2_tpu_torch.models.fused_matcher import (
+        SearchGraphs,
+    )
+
+    graphs = SearchGraphs("CardTest.two_keys")
+    for call in range(3):
+        for dense in (False, True):
+            cfg, thr, _, on = _search_case(cuda_device, 60 + call, loop=False)
+            out = graphs(cfg, *on, *thr, dense=dense)
+            fetched = [o.cpu() for o in out]
+            if call:
+                cfg, thr, _, other = _search_case(cuda_device, 70 + call,
+                                                  loop=False)
+                graphs(cfg, *other, *thr, dense=not dense)
+                torch.cuda.synchronize(cuda_device)
+                for o, f in zip(out, fetched):
+                    assert torch.equal(o.cpu(), f)
+    assert len(graphs._graphs) == 2
+
+
+def test_search_captures_where_every_sweep_is_fenced(cuda_device,
+                                                    monkeypatch):
+    """A caller that wraps ``ops/csm.py:sweep`` in device fences (the
+    benchmark's traced half does) synchronises inside the search; the
+    capture, which must not synchronise, records the sweeps without
+    calling it, and every replay runs them through the wrapper: a key
+    first met under the fences captures, and its replays give the CPU's
+    bits."""
+    from my_lidar_graph_slam_v2_tpu_torch.matching.correlative import (
+        correlative_core,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.models.fused_matcher import (
+        SearchGraphs,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.ops import csm as csm_ops
+
+    sweep, fenced = csm_ops.sweep, []
+
+    def fenced_sweep(*args, **kw):
+        torch.cuda.synchronize(cuda_device)
+        out = sweep(*args, **kw)
+        torch.cuda.synchronize(cuda_device)
+        if args[0].is_cuda:
+            fenced.append(kw["stride"])
+        return out
+
+    monkeypatch.setattr(csm_ops, "sweep", fenced_sweep)
+    graphs = SearchGraphs("CardTest.fenced")
+    for seed in (90, 91, 92):
+        cfg, thr, args, on = _search_case(cuda_device, seed, loop=False)
+        got = graphs(cfg, *on, *thr, dense=True)
+        want = correlative_core(cfg, *args, *thr, dense=True)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    # the first call's eager run and two replays, two sweeps each
+    assert fenced == [5, 1] * 3
+
+
+def test_search_capture_survives_a_graph_collected_inside_it(cuda_device,
+                                                            monkeypatch):
+    """A matcher holding a captured search, dropped in a reference cycle,
+    freed by the garbage collector inside another matcher's capture,
+    would invalidate that capture: the search captures with the collector
+    paused, as the LM does."""
+    import gc
+
+    from my_lidar_graph_slam_v2_tpu_torch.matching.correlative import (
+        correlative_core,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.models.fused_matcher import (
+        SearchGraphs,
+    )
+
+    cfg, thr, args, on = _search_case(cuda_device, 80, loop=False)
+    old = SearchGraphs("CardTest.old")
+    old(cfg, *on, *thr)
+    assert old._graphs
+    old.cycle = old
+    del old
+    begin = torch.cuda.CUDAGraph.capture_begin
+
+    def begin_then_collect(self, *args, **kw):
+        begin(self, *args, **kw)
+        if gc.isenabled():  # the collector runs here if it may
+            gc.collect()
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin",
+                        begin_then_collect)
+    graphs = SearchGraphs("CardTest.new")
+    c0 = search_graph_counts("CardTest.new")
+    for seed in (81, 82):
+        cfg, thr, args, on = _search_case(cuda_device, seed, loop=False)
+        got = graphs(cfg, *on, *thr)
+        want = correlative_core(cfg, *args, *thr)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    assert search_graph_counts("CardTest.new") == (c0[0] + 1, c0[1] + 1)
     assert gc.isenabled()
 
 

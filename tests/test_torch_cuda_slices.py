@@ -308,6 +308,22 @@ def test_serial_loop_slice_launches(serial_runs):
     assert matches.total("sweeps") >= 2 * len(matches.calls)
 
 
+def test_the_matchers_replay_their_searches(frontend_runs, serial_runs):
+    """The frontend's fused matcher and the serial loop detector's each
+    hold a captured search for each key they met, the pruned search and
+    at most its dense re-run, and replayed them."""
+    from my_lidar_graph_slam_v2_tpu_torch.metrics.registry import (
+        MetricManager,
+    )
+
+    mm = MetricManager.instance()
+    for m in (frontend_runs["gpu"]["slam"].frontend.scan_matcher,
+              serial_runs["gpu"]["slam"].backend.loop_detector.scan_matcher):
+        dense = [key[1] for key in m._search._graphs]
+        assert dense and len(set(dense)) == len(dense) <= 2, m.name
+        assert mm.counter(f"{m.name}.GraphReplays").value > 0, m.name
+
+
 def test_gather_backend_loop_slice_on_the_card_is_the_cpus(
         cuda_device, loop_world, serial_runs):
     """The serial detector's matcher on the gather sweep backend: the
