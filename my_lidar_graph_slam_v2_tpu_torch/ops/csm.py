@@ -48,9 +48,13 @@ images once per match (:func:`build_hit_images`; on CUDA tensors the
 hand-written kernel of ``ops/hit_images_cuda.py``) and shares them
 between its bound sweep and every block sweep (:func:`sweep_from_hits`, a
 matmul against the map patches: f32 on u8 maps, f64 on f32 windows, exact
-either way).
+either way).  A batch of candidates builds its images in one call
+(:func:`build_hit_images_batch`) and sweeps any number of windows of them
+in one call (:func:`sweep_from_hits_batch`), with the same sums.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -515,6 +519,15 @@ def _hits_x_patches(hit_img, planes, off, stride):
     return out
 
 
+def _require_full_f32_matmuls():
+    if torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            "the u8 hit-image sweep needs full f32 matmuls: TF32 would "
+            "round the integer sums (set "
+            "torch.backends.cuda.matmul.allow_tf32 = False)"
+        )
+
+
 def _sweep_hits(hit_img, inp, off, stride):
     """:func:`_hits_x_patches` of a window from :func:`sweep_input_window`
     (``[in_rows, in_cols, 2]``): a u8 window in f32 (the integer sums stay
@@ -524,12 +537,7 @@ def _sweep_hits(hit_img, inp, off, stride):
     are their sums, as the module docstring states), rounded to f32 once.
     f32 ``[2, n_off, T]``."""
     if inp.dtype == torch.uint8:
-        if torch.get_float32_matmul_precision() != "highest":
-            raise RuntimeError(
-                "the u8 hit-image sweep needs full f32 matmuls: TF32 would "
-                "round the integer sums (set "
-                "torch.backends.cuda.matmul.allow_tf32 = False)"
-            )
+        _require_full_f32_matmuls()
         out = _hits_x_patches(hit_img, inp.permute(2, 0, 1).to(torch.float32),
                               off, stride)
         return out * float(quant.INV255)
@@ -573,6 +581,95 @@ def sweep_from_hits_at(hit_img, r0, c0, prob, observed, x0, y0, off_ji, *,
                        torch.clamp(off_ji[:, 1], 0, max_i)], -1).long()
     out = _sweep_hits(hit_img, inp, off.to(inp.device), 1)
     return out[0].t(), out[1].t()
+
+
+class HitImages(NamedTuple):
+    """A batch's hit images (:func:`build_hit_images_batch`): ``img`` f32
+    ``[N, T, crop_rows, crop_cols]``, the crop rows they were built from
+    with beam validity and the theta mask folded in as -1 (``rows`` i32
+    ``[N, T, B]``), and the crop anchors ``r0``, ``c0`` (i32 ``[N]``)."""
+
+    img: torch.Tensor
+    rows: torch.Tensor
+    r0: torch.Tensor
+    c0: torch.Tensor
+
+
+def build_hit_images_batch(hr, hc, valid, theta_mask, r0, c0, *, crop_rows,
+                           crop_cols) -> HitImages:
+    """:func:`build_hit_images` of N candidates at once, from their beam
+    cells ``[N, T, B]``, theta masks ``[N, T]`` and crop anchors ``[N]``
+    (:func:`beam_cells` with a candidate axis).  Each theta row is
+    independent, so the N * T rows are one call of :func:`hit_images`: one
+    kernel launch on the card, whatever N is."""
+    N, T, B = hr.shape
+    ok = valid & theta_mask[..., None]
+    rows = torch.where(ok, hr, -1).contiguous()
+    cols = torch.where(ok, hc, -1).contiguous()
+    img = hit_images(rows.view(N * T, B), cols.view(N * T, B),
+                     crop_rows=crop_rows, crop_cols=crop_cols)
+    return HitImages(img.view(N, T, crop_rows, crop_cols), rows, r0, c0)
+
+
+def _runs(cand):
+    """``(value, start, end)`` of each run of equal values in ``cand``."""
+    out, start = [], 0
+    for i in range(1, len(cand) + 1):
+        if i == len(cand) or cand[i] != cand[start]:
+            out.append((cand[start], start, i))
+            start = i
+    return out
+
+
+def sweep_from_hits_batch(hits: HitImages, prob, observed, x0, y0, *, nx,
+                          ny, stride, precision, cand, map_index=None):
+    """:func:`sweep_from_hits` of P windows of a batch's hit images in one
+    call: window ``w`` sweeps candidate ``cand[w]``'s images against its
+    map at offsets ``(x0[w] + i * stride, y0[w] + j * stride)``.  ``cand``
+    is a host list of P candidate indices, its equal values adjacent;
+    ``x0``, ``y0`` are i32 ``[P]`` on the device.  The maps are one raster
+    ``[H, W]``, or a stack ``[M, H, W]`` with ``map_index`` (i64 ``[N]``)
+    naming each candidate's.
+
+    The P windows are cut in one gather; each candidate's windows are
+    then one matmul of their patches with its flat images (at most
+    :data:`_PATCH_CHUNK` offsets a product, as :func:`_hits_x_patches`),
+    so every sum is the serial form's, bit for bit.  Returns ``(scores,
+    known)`` f32 ``[P, T, ny, nx]``."""
+    _, T, CR, CC = hits.img.shape
+    dev = hits.img.device
+    groups = _runs(cand)
+    idx = torch.cat([torch.full((e - s,), c, dtype=torch.int64, device=dev)
+                     for c, s, e in groups])
+    inp = sweep_input_window(
+        prob, observed, hits.r0[idx], hits.c0[idx], x0, y0,
+        in_rows=CR + (ny - 1) * stride, in_cols=CC + (nx - 1) * stride,
+        precision=precision,
+        map_index=None if map_index is None else map_index[idx])
+    if inp.dtype == torch.uint8:
+        _require_full_f32_matmuls()
+        planes = inp.permute(0, 3, 1, 2).to(torch.float32)
+        chunk = _PATCH_CHUNK
+    else:
+        planes = round_to_fixed_point(inp).permute(0, 3, 1, 2).to(
+            torch.float64)
+        chunk = _PATCH_CHUNK // 2
+    # [P, 2, ny, nx, CR, CC]: window w's patch at offset (j, i), per channel
+    views = planes.unfold(2, CR, stride).unfold(3, CC, stride)
+    per = max(1, chunk // (ny * nx))
+    out = torch.empty((len(cand), 2, ny, nx, T), dtype=planes.dtype,
+                      device=dev)
+    for c, s, e in groups:
+        hit_t = hits.img[c].reshape(T, CR * CC).t().to(planes.dtype)
+        for w0 in range(s, e, per):
+            w1 = min(e, w0 + per)
+            patches = views[w0:w1].reshape(-1, CR * CC)
+            out[w0:w1] = (patches @ hit_t).view(w1 - w0, 2, ny, nx, T)
+    if inp.dtype == torch.uint8:
+        out = out * float(quant.INV255)
+    else:
+        out = out.to(torch.float32)
+    return (out[:, 0].permute(0, 3, 1, 2), out[:, 1].permute(0, 3, 1, 2))
 
 
 def sweep_from_hits_int8(hit_i8, row_counts, inp_u8, *, nx, ny, stride):

@@ -15,7 +15,11 @@ import torch
 
 from ..graph.optimizer import OptimizerConfig, PoseGraphOptimizer
 from ..grid.builder import GridMapBuilder, GridMapBuilderConfig
-from ..loop.detector import LoopDetectorConfig, LoopDetectorCorrelative
+from ..loop.detector import (
+    LoopDetectorBranchBound,
+    LoopDetectorConfig,
+    LoopDetectorCorrelative,
+)
 from ..loop.searcher import LoopSearcherConfig, LoopSearcherNearest
 from ..matching.branch_bound import BranchBoundConfig, ScanMatcherBranchBound
 from ..matching.correlative import CorrelativeConfig, ScanMatcherCorrelative
@@ -25,7 +29,10 @@ from ..matching.linear_solver import LinearSolverConfig, ScanMatcherLinearSolver
 from ..metrics.registry import MetricManager
 from ..models.fused_matcher import FusedCorrelativeGNMatcher
 from ..parallel.distributed import DistributedPoseGraphOptimizer, RankSum
-from ..parallel.loop_sharded import LoopDetectorShardedCorrelative
+from ..parallel.loop_sharded import (
+    LoopDetectorShardedBranchBound,
+    LoopDetectorShardedCorrelative,
+)
 from ..parallel.mesh import make_mesh
 from ..parallel.multihost import MultiHostLoopDetector
 from ..sensor.filters import ScanAccumulator, ScanInterpolator, ScanOutlierFilter
@@ -94,7 +101,8 @@ def _backend(device, make_detector, make_optimizer, *,
     return LidarGraphSlamBackend(searcher, detector, optimizer, inline=inline)
 
 
-def create_default_backend(*, device, sharded: Optional[bool] = None, **kw):
+def create_default_backend(*, device, sharded: Optional[bool] = None,
+                           loop_detector: str = "Correlative", **kw):
     """Default backend on ``device``: nearest searcher + the correlative
     loop detector + LM optimizer; the keywords and defaults of
     :func:`_backend`.
@@ -103,14 +111,39 @@ def create_default_backend(*, device, sharded: Optional[bool] = None, **kw):
     step's candidates as one batch on ``device``
     (``parallel/loop_sharded.py``: one coarse and one fine sweep launch per
     step), as the JAX package's default does on one device; ``False``
-    runs the serial fused detector, one candidate at a time."""
+    runs the serial fused detector, one candidate at a time.
+
+    ``loop_detector="BranchBound"`` puts the reference's
+    ``LoopDetectorBranchBound`` group in its place (NodeHeightMax 6, the
+    same window, crop, thetas, gates and final matcher): batched, one
+    branch-and-bound batch per step (``LoopDetectorShardedBranchBound``),
+    or with ``sharded=False`` the serial ``LoopDetectorBranchBound``."""
+    if loop_detector not in ("Correlative", "BranchBound"):
+        raise ValueError(f"unknown loop detector: {loop_detector}")
+    branch_bound = loop_detector == "BranchBound"
+
+    def bb_cfg(m: CorrelativeConfig) -> BranchBoundConfig:
+        return BranchBoundConfig(
+            range_x=m.range_x, range_y=m.range_y, range_theta=m.range_theta,
+            resolution=m.resolution, n_theta_max=m.n_theta_max,
+            crop_rows=m.crop_rows, crop_cols=m.crop_cols)
+
     if sharded is not False:
         def detector(detector_cfg, matcher_cfg, final_matcher, resolution):
+            if branch_bound:
+                return LoopDetectorShardedBranchBound(
+                    detector_cfg, bb_cfg(matcher_cfg), final_matcher, device,
+                    resolution=resolution)
             return LoopDetectorShardedCorrelative(
                 detector_cfg, matcher_cfg, final_matcher, device,
                 resolution=resolution)
     else:
         def detector(detector_cfg, matcher_cfg, final_matcher, resolution):
+            if branch_bound:
+                return LoopDetectorBranchBound(
+                    detector_cfg,
+                    ScanMatcherBranchBound(bb_cfg(matcher_cfg), device),
+                    final_matcher, resolution=resolution)
             return LoopDetectorCorrelative(
                 detector_cfg,
                 FusedCorrelativeGNMatcher(

@@ -30,6 +30,7 @@ from torch_card_cases import (
     GRID_SEARCH_SETTINGS,
     HILL_CLIMBING_SETTINGS,
     LAUNCHER_SETTINGS,
+    batched_branch_bound_slam,
     correlative_loop_slam,
     cuda_device,  # noqa: F401 (fixture)
     default_loop_slam,
@@ -280,6 +281,109 @@ def test_branch_bound_loop_slice_launches(branch_bound_runs):
     assert matches >= 1
     assert gpu["hit_images"] == matches
     assert gpu["sweeps"] >= 2 * (len(gpu["est"]) - 1)
+
+
+def compare_branch_bound_steps(runs):
+    """A ``hook`` that, at each ``detect`` of the batched branch-and-bound
+    detector, first matches the same queries with the serial
+    ``ScanMatcherBranchBound`` (the blocks it sweeps), then records the
+    batched call's hit-image launches and the rise of its counters into
+    ``runs["steps"]``."""
+    from my_lidar_graph_slam_v2_tpu_torch.core import pose as P
+    from my_lidar_graph_slam_v2_tpu_torch.loop.detector import scan_to_arrays
+    from my_lidar_graph_slam_v2_tpu_torch.matching.branch_bound import (
+        ScanMatcherBranchBound,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.matching.types import (
+        ScanMatchingQuery,
+    )
+    from my_lidar_graph_slam_v2_tpu_torch.metrics.registry import (
+        MetricManager,
+    )
+
+    def counter(name):
+        return MetricManager.instance().counter(
+            f"LoopDetector.BranchBound.{name}").value
+
+    def hook(slam):
+        det = slam.backend.loop_detector
+        serial = ScanMatcherBranchBound(det.mcfg, det.device)
+        detect, runs["steps"] = det.detect, []
+
+        def compared(queries):
+            s0 = serial.blocks_swept
+            for q in queries:
+                serial.optimize_pose(
+                    ScanMatchingQuery(
+                        det.map_cache.raster(q["local_map"]),
+                        scan_to_arrays(q["query_node"].scan_data,
+                                       det.cfg.beam_capacity, det.device),
+                        P.inverse_compound(q["local_map_node"].global_pose,
+                                           q["query_node"].global_pose)),
+                    score_threshold=det.cfg.score_threshold,
+                    known_rate_threshold=det.cfg.known_rate_threshold)
+            h0, b0, r0 = hit_images(), counter("BlocksSwept"), counter("Rounds")
+            out = detect(queries)
+            runs["steps"].append(dict(
+                size=len(queries), hit_images=hit_images() - h0,
+                blocks=counter("BlocksSwept") - b0,
+                serial_blocks=serial.blocks_swept - s0,
+                rounds=counter("Rounds") - r0))
+            return out
+
+        det.detect = compared
+    return hook
+
+
+@pytest.fixture(scope="module")
+def batched_branch_bound_runs(cuda_device, loop_world):
+    """The batched branch-and-bound detector
+    (``create_default_backend(loop_detector="BranchBound")``) on config
+    #3's world, its program spans traced on the card."""
+    from my_lidar_graph_slam_v2_tpu_torch.metrics.registry import (
+        MetricManager,
+    )
+
+    mm, runs = MetricManager.instance(), {}
+    was_tracing = mm.tracing
+    mm.start_tracing(ranges=False)
+    n0 = len(mm.trace_records())
+    try:
+        runs["gpu"] = drive(cuda_device, loop_world, batched_branch_bound_slam,
+                            hook=compare_branch_bound_steps(runs))
+        mm.close_record()  # the spans after the last keyframe's record
+        runs["rounds_spans"] = sum(
+            1 for r in mm.trace_records()[n0:] for sp in r.spans
+            if sp[0] == "bb.round")
+    finally:
+        if not was_tracing:
+            mm.stop_tracing()
+    runs["cpu"] = drive("cpu", loop_world, batched_branch_bound_slam)
+    return runs
+
+
+def test_batched_branch_bound_slice_on_the_card_is_the_cpus(
+        batched_branch_bound_runs, branch_bound_runs, loop_world):
+    """The batched detector on the card: the CPU's keyframes and loop
+    edges, poses within the serial slice's tolerance, and the serial
+    branch-and-bound slice's results bit for bit on the same device."""
+    gpu = batched_branch_bound_runs["gpu"]
+    assert gpu["loops"]
+    assert_same(gpu, batched_branch_bound_runs["cpu"], tol=LOOP_TOL)
+    assert_same(gpu, branch_bound_runs["gpu"])
+    assert_beats_odometry(gpu, loop_world)
+
+
+def test_batched_branch_bound_slice_launches(batched_branch_bound_runs):
+    """One hit-image launch a step whatever its candidates; the blocks
+    the batched descent counts are the serial matcher's on the same
+    queries; ``.Rounds`` rises once a ``bb.round`` span."""
+    steps = [s for s in batched_branch_bound_runs["steps"] if s["size"]]
+    assert steps and any(s["size"] > 1 for s in steps)
+    assert all(s["hit_images"] == 1 for s in steps), steps
+    assert all(s["blocks"] == s["serial_blocks"] for s in steps), steps
+    rounds = sum(s["rounds"] for s in steps)
+    assert rounds == batched_branch_bound_runs["rounds_spans"] >= 1
 
 
 @pytest.fixture(scope="module")

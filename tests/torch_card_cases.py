@@ -398,6 +398,22 @@ def correlative_loop_slam(device, *, sharded=False, **factory_kw):
     return create_default_slam(device=device, backend=backend, **factory_kw)
 
 
+def batched_branch_bound_slam(device, **factory_kw):
+    """``create_default_slam`` with ``create_default_backend(
+    loop_detector="BranchBound")``: branch-and-bound batched over a
+    backend step's candidates at the ``LoopDetectorBranchBound`` group's
+    values (the same system as :func:`loop_slam` but for the batching);
+    config #3's searcher and the Schur LM, inline."""
+    from my_lidar_graph_slam_v2_tpu_torch.pipeline.factory import (
+        create_default_backend,
+        create_default_slam,
+    )
+
+    backend = create_default_backend(device=device, loop_detector="BranchBound",
+                                     searcher_overrides=LOOP_SEARCHER)
+    return create_default_slam(device=device, backend=backend, **factory_kw)
+
+
 def default_loop_slam(device, **factory_kw):
     """The main path: :func:`correlative_loop_slam` with the default
     (batched) backend."""
